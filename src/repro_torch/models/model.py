@@ -1,0 +1,111 @@
+"""Top-level language model: embed -> segments -> final norm -> logits.
+
+Counterpart of ``repro.models.model`` for the decoder-only dense family.
+
+`Batch` contract (as in the reference):
+  tokens     (b, s) integer  decoder token ids
+  positions  (b, s)          overrides the default arange
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch import resolve_device
+
+from . import blocks
+from .config import ModelConfig
+from .layers import apply_norm, embed_tokens, embedding_params, lm_logits, norm_params
+from .params import ParamBuilder, torch_dtype
+
+_UNPORTED = ("encdec", "vlm")
+
+
+# --------------------------------------------------------------------------- #
+# Params
+# --------------------------------------------------------------------------- #
+def model_params(pb: ParamBuilder, cfg: ModelConfig):
+    if cfg.family in _UNPORTED or cfg.mtp_depth > 0:
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} "
+                                  f"(mtp_depth {cfg.mtp_depth}) is not yet ported")
+    p: Dict[str, Any] = {"tok": embedding_params(pb, cfg)}
+    p["segments"] = {seg.name: blocks.segment_params(pb, cfg, seg)
+                     for seg in blocks.segments(cfg)}
+    p["norm_f"] = norm_params(pb, cfg)
+    return p
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                dtype: Optional[str | torch.dtype] = None):
+    """Random weights from a seeded ``torch.Generator`` on ``device``.
+
+    Same tree, leaf names and scale rules as the reference's ``init_params``
+    (not the same numbers). Leaves are made in float32 and cast one at a time
+    to ``dtype`` (default ``cfg.param_dtype``); serving passes
+    ``cfg.compute_dtype`` so that no float32 copy of the model is ever held.
+    """
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    pb = ParamBuilder("init", generator=gen, device=dev,
+                      param_dtype=torch_dtype(dtype or cfg.param_dtype))
+    return model_params(pb, cfg)
+
+
+def param_shapes(cfg: ModelConfig):
+    """The parameter tree with :class:`ParamSpec` leaves (no allocation)."""
+    return model_params(ParamBuilder("shape", param_dtype=torch_dtype(cfg.param_dtype)), cfg)
+
+
+# --------------------------------------------------------------------------- #
+# Forward passes
+# --------------------------------------------------------------------------- #
+def _default_positions(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    if "positions" in batch:
+        return batch["positions"]
+    tokens = batch["tokens"]
+    return torch.arange(tokens.shape[1], device=tokens.device)[None].expand(tokens.shape)
+
+
+def _run_segments(params, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
+                  cache=None, positions=None, pos=None, attn_impl: str = "kernel"):
+    new_cache: Dict[str, Any] = {}
+    for seg in blocks.segments(cfg):
+        c = cache[seg.name] if cache is not None else None
+        x, nc = blocks.segment_forward(
+            params["segments"][seg.name], x, cfg, seg, mode=mode, cache=c,
+            positions=positions, pos=pos, attn_impl=attn_impl)
+        if nc is not None:
+            new_cache[seg.name] = nc
+    return x, (new_cache if new_cache else None)
+
+
+def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            mode: str = "train", attn_impl: str = "kernel"):
+    """Train / prefill forward. Returns (logits, cache_or_None, aux, x).
+
+    ``aux`` is the MoE auxiliary loss of the reference; the dense family
+    has none, so it is a zero scalar.
+    """
+    positions = _default_positions(batch)
+    x = embed_tokens(params["tok"], batch["tokens"], cfg)
+    x, cache = _run_segments(params, cfg, x, mode=mode, positions=positions,
+                             attn_impl=attn_impl)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = apply_norm(params["norm_f"], x, cfg)
+    logits = lm_logits(params["tok"], x, cfg)
+    return logits, cache, aux, x
+
+
+def decode_step(params, cfg: ModelConfig, token: torch.Tensor, cache,
+                pos: torch.Tensor):
+    """One-token decode. token: (b,); pos: (b,). Returns (logits, cache).
+
+    The cache is updated in place and returned.
+    """
+    x = embed_tokens(params["tok"], token[:, None], cfg)
+    x, new_cache = _run_segments(params, cfg, x, mode="decode", cache=cache, pos=pos)
+    x = apply_norm(params["norm_f"], x, cfg)
+    logits = lm_logits(params["tok"], x, cfg)[:, 0]
+    return logits, new_cache
