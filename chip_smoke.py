@@ -4,21 +4,36 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (Hopper: the kernels are built for sm_90a). It builds the
-port's kernels from the sources in this checkout into ``build/``, holds each
-kernel against its plain PyTorch version on the card, serves llama3-8b at full
-width and depth (seeded random bf16 weights made on the card) through
-``repro_torch.launch.serve``, checks what comes out, and prints one JSON line
-per phase. The last line is ``{"ok": true, "device": {...}}``. Any failed
-check raises, so the script exits nonzero and prints no such line; it also
-exits nonzero on a host without a card, or outside a checkout of the repo.
+port's kernels (flash attention, blockwise int8 quantise / dequantise) from
+the sources in this checkout into ``build/``, one nvcc per source, and holds
+each kernel against its plain PyTorch version on the card. Then it drives the
+port's two main paths at llama3-8b's full width, with seeded random weights:
+
+* serving, full depth, bf16 (``repro_torch.launch.serve``): prefill through
+  the flash-attention kernel, then decode;
+* one training rank, 4 layers (an Adam state of all 32 does not fit one
+  card): ``make_train_step`` for 8 timed steps of 4 x 1024 tokens, one with
+  gradients and optimizer timed apart and one under ``torch.profiler``,
+  then a TCE
+  checkpoint of the trained params through ``DiskStore`` with the ``int8``
+  codec, which quantises and dequantises through the hand-written kernels,
+  and a restore; then the port's rank worker as a subprocess on the card,
+  killed in the middle of a save and restored, at its reduced default.
+
+Each phase checks what comes out and prints one JSON line. The last line is
+``{"ok": true, "device": {...}}``. Any failed check raises, so the script
+exits nonzero and prints no such line; it also exits nonzero on a host
+without a card, or outside a checkout of the repo.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -59,6 +74,35 @@ FA_CASES = [
     (1, 77, 77, 4, 4, 64, False, torch.float32),
 ]
 MAIN_FA = (REQUESTS, PROMPT_LEN, PROMPT_LEN, 32, 8, 128, True, torch.bfloat16)
+
+# The training main path: llama3-8b at full width and 4 layers (1.92 B
+# params, ~31 GB of f32 params, grads and two moments), 8 timed steps of
+# 4 x 1024 tokens, lr 3e-4 from the first step (no warmup: a warmup gives
+# lr 0 at step 0).
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 4, 1024, 8, 3e-4
+# int8 leaves of its params under the worker's lossless globs: tok/table,
+# tok/head and the 7 stacked projections (norm scales stay lossless).
+INT8_LEAVES = 9
+# Loss on the next batch, restored vs saved params. Each restored weight is
+# within s/2 = amax/254 of its block's amax: a ~0.2% relative perturbation,
+# which moves a loss near ln(vocab) = 11.8 by far less than 1%.
+RESTORE_LOSS_REL_TOL = 1e-2
+# |x - dequant(quant(x))| <= s/2 per block, up to three roundings, in units
+# of a half step s/2: x / s (|x / s| <= 127, half an ulp of 127 = 2^-18 s),
+# q * s (2^-24 of 127 s) and the subtraction that measures the error.
+HALF_STEP_SLACK = 1 + 2 * (2.0 ** -18 + 127 * 2.0 ** -24) + 2.0 ** -24
+
+QB_BLOCK = 256
+# (n, d, block): the cases of tests/test_kernels.py::test_quant_2d_vs_oracle
+QUANT_2D = [(64, 512, 128), (256, 256, 256), (32, 1024, 512)]
+# the codec layout: leaf sizes of 1, 37, 256 and 301 blocks (ragged tails;
+# 301 is the leaf of 76,805 values on which the reference's wrapper asserts)
+QUANT_CODEC_N = [200, 37 * 256 - 100, 256 * 256, 76_805]
+TIE_VALUES = [0.5, -0.5, 2.5, -3.5, 127.0]        # amax 127 -> s = 1
+TIE_WANT = [0, 0, 2, -4, 127]                     # round half to even
+TOK_TABLE = (128256, 4096)                        # the largest leaf on the path
+QB_SRC = "src/repro_torch/kernels/quant_blockwise/csrc/quant_blockwise.cu"
+QB_REPLACES = "src/repro/kernels/quant_blockwise/quant_blockwise.py"
 
 
 def emit(obj) -> None:
@@ -102,6 +146,48 @@ def fa_bound(case):
     peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_S
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def quant_bound(n: int, block: int, quantise: bool):
+    """Least time (s) for (de)quantising n float32 values: x read once, q and
+    s written once (or the reverse); operations per value: |x|, max, a
+    division, a round and two clips to quantise, one product to dequantise,
+    at the float32 peak outside the tensor cores."""
+    nbytes = 4 * n + n + 4 * (n // block)
+    ops = (6 if quantise else 1) * n
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes"), nbytes
+
+
+KERNEL_KINDS = (("matmul", ("gemm", "nvjet", "cutlass", "xmma", "matmul")),
+                ("softmax", ("softmax",)), ("reduce", ("reduce",)),
+                ("gather / scatter", ("index", "gather", "scatter")),
+                ("elementwise / copy", ("elementwise", "copy")))
+
+
+def kernel_kind(name: str) -> str:
+    """A coarse kind for a CUDA kernel's name, for the profile breakdown."""
+    low = name.lower()
+    return next((kind for kind, keys in KERNEL_KINDS if any(k in low for k in keys)), "other")
+
+
+def plain_codec(qb_ref, x: torch.Tensor, block: int = QB_BLOCK):
+    """The plain version of the codec's round trip, on x's device: zero-pad
+    the flat leaf to whole blocks, quantise, dequantise, crop."""
+    flat = x.reshape(-1).float()
+    n = flat.numel()
+    pad = (-n) % block
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    q, s = qb_ref.quantize_reference(flat.reshape(-1, block), block)
+    xd = qb_ref.dequantize_reference(q, s, block).reshape(-1)[:n].reshape(x.shape)
+    return q, s[:, 0], xd
+
+
+def same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit, a NaN equal to a NaN (the card does not keep NaN bits)."""
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        ((a == b) | (torch.isnan(a) & torch.isnan(b)) if a.is_floating_point() else (a == b)).all())
 
 
 def phase_device():
@@ -241,6 +327,289 @@ def phase_decode_check(engine, model_mod):
     check(ok, f"decode vs forward: max abs err {err}")
 
 
+def phase_quant_kernel(qb_ops, qb_ref):
+    """Both quant kernels vs their plain version on the card, bit for bit,
+    then their times at the largest leaf of the checkpoint path."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    rows = []
+
+    def record(kind, shape, ok):
+        rows.append({"kind": kind, "shape": list(shape), "ok": ok})
+        check(ok, f"quant kernel disagrees with its plain version: {rows[-1]}")
+
+    def two_d(x, block, kind):
+        q, s = qb_ops.quantize_blockwise_2d(x, block)
+        xd = qb_ops.dequantize_blockwise_2d(q, s, block)
+        torch.cuda.synchronize()
+        qr, sr = qb_ref.quantize_reference(x, block)
+        xr = qb_ref.dequantize_reference(qr, sr, block)
+        record(kind, x.shape, same(q, qr) and same(s, sr) and same(xd, xr))
+        return q, s
+
+    for n, d, block in QUANT_2D:
+        two_d(torch.randn(n, d, generator=g, device="cuda") * 3, block, "2d")
+    special = torch.zeros(4, QB_BLOCK, device="cuda")
+    special[0, :len(TIE_VALUES)] = torch.tensor(TIE_VALUES)
+    special[2] = torch.linspace(-1, 1, QB_BLOCK)                  # row 1: all zero
+    special[2, 3] = float("nan")
+    special[3] = torch.linspace(-1, 1, QB_BLOCK)
+    special[3, 5] = float("inf")
+    q, s = two_d(special, QB_BLOCK, "tie, zero, nan, inf")
+    check(q[0, :len(TIE_WANT)].tolist() == TIE_WANT and float(s[0, 0]) == 1.0,
+          f"tie block gave q {q[0, :len(TIE_WANT)].tolist()}, s {float(s[0, 0])}")
+    check(not q[1:].any() and bool(torch.isnan(s[2, 0])) and float(s[3, 0]) == math.inf,
+          "zero / non-finite blocks")
+    for n in QUANT_CODEC_N:
+        x = torch.randn(n, generator=g, device="cuda")
+        q, s = qb_ops.quantize_blockwise(x)
+        xd = qb_ops.dequantize_blockwise(q, s, (n,))
+        torch.cuda.synchronize()
+        qr, sr, xr = plain_codec(qb_ref, x)
+        record(f"codec {q.shape[0]} blocks", (n,), same(q, qr) and same(s, sr) and same(xd, xr))
+
+    # the full-width tok/table leaf: check, then time kernel and plain version
+    x = torch.randn(TOK_TABLE, generator=g, device="cuda") * 0.02
+    n = x.numel()
+    q, s = qb_ops.quantize_blockwise(x)
+    xd = qb_ops.dequantize_blockwise(q, s, TOK_TABLE)
+    torch.cuda.synchronize()
+    x2 = x.reshape(-1, QB_BLOCK)
+    qr, sr = qb_ref.quantize_reference(x2, QB_BLOCK)
+    xr = qb_ref.dequantize_reference(qr, sr, QB_BLOCK).reshape(TOK_TABLE)
+    record("tok/table", TOK_TABLE, same(q, qr) and same(s, sr[:, 0]) and same(xd, xr))
+    max_abs_err = float((xd - xr).abs().max())
+    del qr, sr, xr, xd
+    out = {"phase": "quant_kernel", "cases": rows, "max_abs_err": max_abs_err,
+           "leaf": "tok/table", "shape": list(TOK_TABLE), "block": QB_BLOCK}
+    for name, quantise in (("quantize", True), ("dequantize", False)):
+        if quantise:
+            kernel = lambda: qb_ops.quantize_blockwise(x)  # noqa: E731
+            plain = lambda: qb_ref.quantize_reference(x2, QB_BLOCK)  # noqa: E731
+        else:
+            kernel = lambda: qb_ops.dequantize_blockwise(q, s, TOK_TABLE)  # noqa: E731
+            plain = lambda: qb_ref.dequantize_reference(q.reshape(-1, QB_BLOCK), s[:, None],  # noqa: E731
+                                                        QB_BLOCK)
+        bound_s, bound_by, nbytes = quant_bound(n, QB_BLOCK, quantise)
+        ms = time_ms(kernel)
+        out[name] = {"ms": ms, "plain_ms": time_ms(plain), "bound_ms": bound_s * 1e3,
+                     "bound_by": bound_by, "gbytes": nbytes / 1e9,
+                     "gb_per_s": nbytes / (ms * 1e-3) / 1e9,
+                     "roofline_share": bound_s * 1e3 / ms, "library_ms": None}
+    out["library"] = ("none: no single PyTorch call quantises blockwise to int8 with "
+                      "absmax scales")
+    emit(out)
+    return out
+
+
+def phase_train(fa_ops):
+    """make_train_step at full width, 4 layers: 8 timed steps of 4 x 1024
+    tokens, then two steps that break the time down."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.train import AdamConfig, init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=TRAIN_LAYERS)
+    opt = AdamConfig(lr=TRAIN_LR, warmup_steps=0, decay_steps=100)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, opt, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    data = SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    step_fn = make_train_step(cfg, opt)
+    losses, secs = [], []
+    fa_ops.LAUNCHES = 0
+    for step in range(TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in data.batch_at(step).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    check(fa_ops.LAUNCHES == 0, "training ran the forward-only flash-attention kernel")
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    steady = secs[2:]
+    step_s = statistics.mean(steady)
+
+    # Two more steps to see where a step's time goes: one with gradients and
+    # the optimizer timed apart, one under the profiler (device time of its
+    # kernels by kind; their sum over the steady step time is the busy share).
+    from repro_torch.train.optimizer import adam_update
+    from repro_torch.train.trainer import TrainConfig, _grads_and_metrics
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in data.batch_at(TRAIN_STEPS).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads, _ = _grads_and_metrics(state.params, cfg, batch, TrainConfig())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    adam_update(state.params, grads, state.opt, state.step, opt, rng=state.rng)
+    torch.cuda.synchronize()
+    split_ms = {"grads": (t1 - t0) * 1e3, "adam": (time.perf_counter() - t1) * 1e3}
+    del grads
+    state = state._replace(step=state.step + 1)
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in data.batch_at(TRAIN_STEPS + 1).items()}
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+    check(int(state.step) == TRAIN_STEPS + 2, f"state.step {int(state.step)}")
+    by_kind: dict = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            kind = kernel_kind(e.key)
+            by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
+    busy_ms = sum(by_kind.values())
+    out = {"phase": "train", "arch": ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "n_params": cfg.n_params(), "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
+           "attn_impl": "chunked", "init_s": init_s, "losses": losses,
+           "step_ms": [v * 1e3 for v in secs], "steady_ms_per_step": step_s * 1e3,
+           "steady_ms_per_step_median": statistics.median(steady) * 1e3,
+           "tok_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "split_step_ms": split_ms, "profiled_kernel_ms_by_kind": by_kind,
+           "profiled_kernel_ms": busy_ms,
+           "device_busy_share_of_steady_step": busy_ms / (step_s * 1e3)}
+    emit(out)
+    return cfg, state, data
+
+
+def phase_checkpoint(cfg, state, data, qb_ops, qb_ref):
+    """The trained params through DiskStore with the int8 codec, and back."""
+    from repro_torch.core.tce import DiskStore, flatten_pytree, shard_state, unflatten_like
+    from repro_torch.models.model import loss_fn
+    from repro_torch.substrate.worker import LOSSLESS_PATHS
+
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in data.batch_at(int(state.step)).items()}
+    with torch.no_grad():
+        loss_saved = float(loss_fn(state.params, cfg, batch)[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flat = flatten_pytree({"params": state.params})
+    d2h_s = time.perf_counter() - t0
+    raw_bytes = sum(a.nbytes for a in flat.values())
+    shards = shard_state(flat, 1)[0]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as root:
+        store = DiskStore(root, device="cuda")
+        qb_ops.LAUNCHES.update(quantize=0, dequantize=0)
+        t0 = time.perf_counter()
+        stored = store.write_rank(0, 0, shards, codec="int8", lossless_paths=LOSSLESS_PATHS)
+        store.commit(0, 1)
+        encode_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = store.read_rank(0, 0)
+        decode_s = time.perf_counter() - t0
+        launches = dict(qb_ops.LAUNCHES)
+        index = store.rank_index(0, 0)
+    int8_paths = {e["spec"]["path"] for e in index if e["enc"] == "int8"}
+    check(len(int8_paths) == INT8_LEAVES, f"{len(int8_paths)} int8 leaves: {sorted(int8_paths)}")
+    check(launches == {"quantize": INT8_LEAVES, "dequantize": INT8_LEAVES},
+          f"quant launches {launches}, want {INT8_LEAVES} each")
+    worst_half_steps = 0.0
+    for path, (_spec, arr) in restored.items():
+        if path not in int8_paths:
+            check(arr.tobytes() == flat[path].tobytes(), f"lossless leaf {path} changed")
+            continue
+        x = torch.from_numpy(flat[path]).to("cuda")
+        got = torch.from_numpy(arr).to("cuda")
+        _q, s, want = plain_codec(qb_ref, x)
+        check(same(got, want), f"{path}: restored leaf != plain dequant(plain quant)")
+        err = (x - got).reshape(-1, QB_BLOCK).abs().amax(dim=-1)
+        worst_half_steps = max(worst_half_steps, float((err / s).max()) * 2)
+        del x, got, want, s, err
+    check(worst_half_steps <= HALF_STEP_SLACK,
+          f"restored error {worst_half_steps} half-steps, want <= 1")
+    params = unflatten_like({"params": state.params},
+                            {p: a for p, (_s, a) in restored.items()})["params"]
+    with torch.no_grad():
+        loss_restored = float(loss_fn(params, cfg, batch)[0])
+    del params
+    rel = abs(loss_restored - loss_saved) / abs(loss_saved)
+    check(rel <= RESTORE_LOSS_REL_TOL,
+          f"loss {loss_saved} saved vs {loss_restored} restored (rel {rel})")
+    out = {"phase": "checkpoint", "codec": "int8", "leaves": len(flat),
+           "int8_leaves": len(int8_paths), "quant_launches": launches["quantize"],
+           "dequant_launches": launches["dequantize"], "raw_gb": raw_bytes / 1e9,
+           "stored_gb": stored / 1e9, "d2h_s": d2h_s, "encode_s": encode_s,
+           "decode_s": decode_s, "encode_gb_per_s": raw_bytes / encode_s / 1e9,
+           "decode_gb_per_s": raw_bytes / decode_s / 1e9,
+           "max_err_half_steps": worst_half_steps, "loss_saved": loss_saved,
+           "loss_restored": loss_restored, "loss_rel_diff": rel,
+           "loss_rel_tol": RESTORE_LOSS_REL_TOL}
+    emit(out)
+    return out
+
+
+def phase_worker():
+    """The port's rank worker on the card: a SIGKILL in a save, a restore."""
+    from repro_torch.core.tce import DiskStore
+    from repro_torch.substrate.worker import RankProcess
+
+    logs = ROOT / "build"
+    logs.mkdir(exist_ok=True)
+    spec = dict(rank=0, n_ranks=1, seed=SEED, total_steps=20, batch=4, seq=32, device="cuda")
+
+    def call(w, log, cmd):
+        resp = w.call(cmd)
+        check(resp is not None and resp.get("ok") == 1,
+              f"worker {cmd} -> {resp}; log tail: {log.read_text()[-2000:]}")
+        return resp
+
+    out = {"phase": "worker", "spec": spec}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_worker_") as root:
+        for codec in ("raw", "int8"):
+            ckpt = str(Path(root) / codec)
+            store = DiskStore(ckpt, device="cuda")
+            t0 = time.perf_counter()
+            log = logs / f"worker-{codec}-first.log"
+            w = RankProcess(dict(spec, ckpt_dir=ckpt, codec=codec), log)
+            spawn_s = time.perf_counter() - t0
+            try:
+                call(w, log, {"cmd": "step", "upto": 4})
+                call(w, log, {"cmd": "save", "step": 4})
+                store.commit(4, 1)
+                tail = call(w, log, {"cmd": "step", "upto": 8})
+                digest = call(w, log, {"cmd": "digest"})
+                check(w.call({"cmd": "save", "step": 8, "die_at": "after_write"}) is None,
+                      "the worker answered a save it was told to die in")
+                w.proc.wait(timeout=60)
+                check(w.proc.returncode == -9, f"worker exit {w.proc.returncode}, want SIGKILL")
+            finally:
+                w.close()
+            check(store.latest_step() == 4, f"latest step {store.latest_step()}, want 4")
+            log = logs / f"worker-{codec}-second.log"
+            w = RankProcess(dict(spec, ckpt_dir=ckpt, codec=codec), log)
+            try:
+                call(w, log, {"cmd": "restore", "step": 4})
+                again = call(w, log, {"cmd": "step", "upto": 8})
+                digest_again = call(w, log, {"cmd": "digest"})
+            finally:
+                w.close()
+            encs = {e["spec"]["path"]: e["enc"] for e in store.rank_index(4, 0)}
+            n_int8 = sum(enc == "int8" for enc in encs.values())
+            losses, losses_again = tail["losses"], again["losses"]
+            check(all(math.isfinite(v) for _, v in losses + losses_again), "non-finite loss")
+            if codec == "raw":
+                check(losses_again == losses, f"losses {losses_again} != {losses}")
+                check(digest_again["leaves"] == digest["leaves"], "leaf crcs differ after restore")
+            else:
+                params = [p for p in encs if p.startswith("params/")]
+                check(n_int8 == INT8_LEAVES and all(encs[p] == "int8" for p in params
+                                                    if not p.endswith("/scale")),
+                      f"int8 checkpoint encodings: {encs}")
+            out[codec] = {"losses": losses, "losses_restored": losses_again,
+                          "bit_identical": losses_again == losses
+                          and digest_again["leaves"] == digest["leaves"],
+                          "int8_leaves": n_int8, "spawn_s": spawn_s,
+                          "steps_5_8_wall_s": tail["wall_s"]}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -249,6 +618,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.quant_blockwise import ops as qb_ops
+    from repro_torch.kernels.quant_blockwise import ref as qb_ref
     from repro_torch.launch import serve as serve_cli
     from repro_torch.models import model as model_mod
     from repro_torch.serve import engine
@@ -260,15 +631,32 @@ def main() -> int:
     launches = phase_serve(fa_ops, serve_cli, engine)
     torch.cuda.empty_cache()
     phase_decode_check(engine, model_mod)
+    torch.cuda.empty_cache()
+    quant = phase_quant_kernel(qb_ops, qb_ref)
+    torch.cuda.empty_cache()
+    cfg, state, data = phase_train(fa_ops)
+    ckpt = phase_checkpoint(cfg, state, data, qb_ops, qb_ref)
+    del state
+    torch.cuda.empty_cache()
+    phase_worker()
     bound_s, bound_by, _, _ = fa_bound(MAIN_FA)
-    emit({"kernels": [{
+    kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:25",
         "launches": launches, "max_abs_err": timing["max_abs_err"],
         "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": bound_s * 1e3, "bound_by": bound_by, "library_ms": timing["library_ms"],
-        "kernel_ms": timing["kernel_ms"], "bound_us": bound_s * 1e6}]})
+        "kernel_ms": timing["kernel_ms"], "bound_us": bound_s * 1e6}]
+    for name, line, key, count in (("quantize_blockwise", 18, "quantize", "quant_launches"),
+                                   ("dequantize_blockwise", 29, "dequantize", "dequant_launches")):
+        t = quant[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": QB_SRC, "replaces": f"{QB_REPLACES}:{line}",
+            "launches": ckpt[count], "max_abs_err": quant["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None})
+    emit({"kernels": kernels})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 1)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

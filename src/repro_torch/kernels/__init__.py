@@ -7,4 +7,5 @@ version) and ``ref.py`` (the plain PyTorch version, the kernel's oracle).
 ``_build.py`` compiles the sources with nvcc at first use.
 
   flash_attention   blocked online-softmax attention (causal + GQA), forward
+  quant_blockwise   blockwise int8 quantise / dequantise (the TCE int8 codec)
 """

@@ -1,13 +1,20 @@
-"""GQA attention: prefill/train through the flash-attention kernel, and the
-single-token decode step.
+"""GQA attention: prefill through the flash-attention kernel, training through
+exact chunked attention, and the single-token decode step.
 
 Counterpart of ``repro.models.attention``. Layouts are the reference's:
 q (B, S, H, D), k and v (B, T, KH, D).
 
-``attention_forward`` takes ``attn_impl="kernel"`` (the hand-written CUDA
-kernel on a card; its plain version for tensors on the CPU) or ``"plain"``,
-which forces the plain version everywhere. The plain path exists so that the
-card can hold the kernel against it; nothing on the main path passes it.
+``attention_forward`` takes ``attn_impl``:
+
+* ``"kernel"`` — the hand-written CUDA flash-attention kernel on a card (its
+  plain version for tensors on the CPU). Forward only: it raises under
+  autograd, as the reference's Pallas attention has no VJP. Serving uses it.
+* ``"chunked"`` — :func:`chunked_attention`, exact attention over query
+  blocks in plain torch ops, differentiable. Training uses it, as the
+  reference trains with ``attn_impl="xla"`` (the same function, left to XLA);
+  ``"xla"`` is accepted as its other name.
+* ``"plain"`` — the flash kernel's plain version everywhere, so that the card
+  can hold the kernel against it; nothing on a main path passes it.
 
 Decode is plain torch ops, as the reference computes it with jnp einsums and
 no Pallas kernel. ``attention_decode`` writes the new token into the cache
@@ -17,7 +24,7 @@ whole cache per step).
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,7 +35,8 @@ from .config import ModelConfig
 from .layers import apply_rope
 from .params import ParamBuilder, torch_dtype
 
-ATTN_IMPLS = ("kernel", "plain")
+ATTN_IMPLS = ("kernel", "chunked", "plain")
+ATTN_ALIASES = {"xla": "chunked"}        # the reference's name for the same math
 
 
 # --------------------------------------------------------------------------- #
@@ -53,6 +61,44 @@ def attn_params(pb: ParamBuilder, cfg: ModelConfig):
 # --------------------------------------------------------------------------- #
 # Core attention math
 # --------------------------------------------------------------------------- #
+def _pick_q_block(seq: int) -> int:
+    for blk in (512, 256, 128, 64, 32, 16, 8, 4, 2, 1):
+        if seq % blk == 0 and blk <= seq:
+            return blk
+    return 1
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool, q_block: Optional[int] = None) -> torch.Tensor:
+    """Exact attention, a loop over query blocks.
+
+    q: (B, S, H, D);  k, v: (B, T, KH, D) with H = KH * rep. (The reference's
+    ``kv_len`` masks a decode cache; the port decodes with
+    :func:`decode_attention`, so no caller needs it.) Scores and softmax are float32 (the reference's
+    ``preferred_element_type=f32``: bf16 operands are widened, so each product
+    is exact); the weights are cast to v's dtype before P.V, as the reference.
+    """
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    rep = h // kh
+    scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32, device=q.device))
+    q_block = q_block or _pick_q_block(s)
+    n_blocks = s // q_block
+    qb = q.reshape(b, n_blocks, q_block, kh, rep, d)
+    kf = k.float()
+    t_idx = torch.arange(t, device=q.device)
+    outs = []
+    for i in range(n_blocks):
+        scores = torch.einsum("bqkrd,btkd->bkrqt", qb[:, i].float(), kf) * scale
+        if causal:
+            q_idx = i * q_block + torch.arange(q_block, device=q.device)
+            mask = q_idx[:, None] >= t_idx[None, :]
+            scores = torch.where(mask, scores, NEG_INF)
+        w = torch.softmax(scores, dim=-1)
+        outs.append(torch.einsum("bkrqt,btkd->bqkrd", w.to(v.dtype), v))
+    return torch.stack(outs, dim=1).reshape(b, s, h, v.shape[-1])
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pos: torch.Tensor) -> torch.Tensor:
     """Single-step decode. q: (B, 1, H, D); k, v: (B, T, KH, D); pos: (B,)."""
@@ -99,6 +145,7 @@ def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
                       use_rope: bool = True,
                       attn_impl: str = "kernel") -> Tuple[torch.Tensor, dict]:
     """Training / prefill forward. Returns (y, kv) — kv feeds the cache."""
+    attn_impl = ATTN_ALIASES.get(attn_impl, attn_impl)
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, not {attn_impl!r}")
     q, k, v = _project_qkv(p, x, cfg)
@@ -107,6 +154,8 @@ def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
         k = apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary_factor)
     if attn_impl == "kernel":
         o = fa_ops.flash_attention(q, k, v, causal=causal)
+    elif attn_impl == "chunked":
+        o = chunked_attention(q, k, v, causal)
     else:
         o = attention_reference(q, k, v, causal=causal)
     return _out_proj(p, o, cfg), {"k": k, "v": v}

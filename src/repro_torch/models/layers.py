@@ -108,8 +108,13 @@ def embedding_params(pb: ParamBuilder, cfg: ModelConfig):
 
 
 def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Casts the table to the compute dtype before the gather, as the reference."""
-    return p["table"].to(torch_dtype(cfg.compute_dtype))[tokens]
+    """Casts the table to the compute dtype before the gather, as the reference.
+
+    The gather is ``index_select``, whose backward on a card has a
+    deterministic implementation (``torch.use_deterministic_algorithms``).
+    """
+    table = p["table"].to(torch_dtype(cfg.compute_dtype))
+    return torch.index_select(table, 0, tokens.reshape(-1)).reshape(*tokens.shape, -1)
 
 
 def lm_logits(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
