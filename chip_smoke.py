@@ -12,13 +12,17 @@ port's two main paths at llama3-8b's full width, with seeded random weights:
 * serving, full depth, bf16 (``repro_torch.launch.serve``): prefill through
   the flash-attention kernel, then decode;
 * one training rank, 4 layers (an Adam state of all 32 does not fit one
-  card): ``make_train_step`` for 8 timed steps of 4 x 1024 tokens, one with
-  gradients and optimizer timed apart and one under ``torch.profiler``,
-  then a TCE
-  checkpoint of the trained params through ``DiskStore`` with the ``int8``
-  codec, which quantises and dequantises through the hand-written kernels,
-  and a restore; then the port's rank worker as a subprocess on the card,
-  killed in the middle of a save and restored, at its reduced default.
+  card): ``make_train_step`` for 8 timed steps of 4 x 1024 tokens, then a
+  TCE checkpoint of the trained params through ``DiskStore`` with the
+  ``int8`` codec, which quantises and dequantises through the hand-written
+  kernels, and a restore; then the port's rank worker as a subprocess on the
+  card, killed in the middle of a save and restored, at its reduced default.
+
+The train phase also takes two steps that say where a step's time goes: one
+with the gradients and the AdamW update timed apart (through the trainer's
+own ``_grads_and_metrics``), one under ``torch.profiler`` for the device's
+busy share and its kernel time by kind. The port has no benchmark cell yet
+that could carry this breakdown, and PERF.md reads it from here.
 
 Each phase checks what comes out and prints one JSON line. The last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -83,10 +87,11 @@ TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 4, 1024, 8, 3e-
 # int8 leaves of its params under the worker's lossless globs: tok/table,
 # tok/head and the 7 stacked projections (norm scales stay lossless).
 INT8_LEAVES = 9
-# Loss on the next batch, restored vs saved params. Each restored weight is
-# within s/2 = amax/254 of its block's amax: a ~0.2% relative perturbation,
-# which moves a loss near ln(vocab) = 11.8 by far less than 1%.
-RESTORE_LOSS_REL_TOL = 1e-2
+# Loss on the next batch, restored vs saved params. Each restored weight moves
+# by at most s/2 = amax/254 of its block, in no set direction; on an H100 the
+# relative change of the loss read 1.4e-5 and 5.8e-5 in two runs. The limit is
+# a few times the worst reading: a wrong scale or block order moves it by O(1).
+RESTORE_LOSS_REL_TOL = 2e-4
 # |x - dequant(quant(x))| <= s/2 per block, up to three roundings, in units
 # of a half step s/2: x / s (|x / s| <= 127, half an ulp of 127 = 2^-18 s),
 # q * s (2^-24 of 127 s) and the subtraction that measures the error.

@@ -14,7 +14,11 @@ demotions and the same payload bytes:
 
 ``encode_shard``/``decode_shard`` are pure byte transforms, numpy in and
 numpy out, as in the reference: an ``int8`` leaf goes to ``device``, is
-quantised there and comes back. ``device`` (default ``cuda``) is resolved
+quantised there and comes back. numpy has no bfloat16, so a bf16 leaf is
+carried as :data:`BF16`, a 2-byte record holding its bit pattern, which the
+checkpoint index names ``bfloat16`` as the reference's ml_dtypes arrays are
+named: such a leaf is int8-quantised like any float leaf, and crosses
+between the packages in both directions. ``device`` (default ``cuda``) is resolved
 only when an ``int8`` leaf is actually encoded or decoded, so ``raw`` and
 ``zlib`` need no card.
 """
@@ -34,6 +38,18 @@ from repro_torch.kernels.quant_blockwise.ops import dequantize_blockwise, quanti
 CODECS = ("raw", "zlib", "int8")
 INT8_BLOCK = 256
 _QUANT_DTYPES = ("float32", "float16", "bfloat16", "float64")
+# the bf16 carrier: a record, so that it is never taken for an integer leaf
+BF16 = np.dtype([("bfloat16", "<u2")])
+
+
+def dtype_name(dtype: np.dtype) -> str:
+    """A leaf's dtype as the checkpoint index names it."""
+    return "bfloat16" if dtype == BF16 else str(dtype)
+
+
+def np_dtype(name: str) -> np.dtype:
+    """Inverse of :func:`dtype_name`."""
+    return BF16 if name == "bfloat16" else np.dtype(name)
 
 
 def is_lossless_path(path: str, patterns: Tuple[str, ...]) -> bool:
@@ -63,7 +79,7 @@ def encode_shard(data: np.ndarray, codec: str, *, lossless: bool = False,
     data = np.ascontiguousarray(data)
     if data.size == 0:
         return "raw", _flat_u8(data), {}
-    if codec == "int8" and (lossless or str(data.dtype) not in _QUANT_DTYPES):
+    if codec == "int8" and (lossless or dtype_name(data.dtype) not in _QUANT_DTYPES):
         codec = "zlib"
     if codec == "raw":
         return "raw", _flat_u8(data), {}
@@ -72,8 +88,12 @@ def encode_shard(data: np.ndarray, codec: str, *, lossless: bool = False,
         if len(comp) >= data.nbytes:          # incompressible: keep raw
             return "raw", _flat_u8(data), {}
         return "zlib", np.frombuffer(comp, np.uint8), {}
-    # int8 blockwise quantisation through the port's kernel
-    x = _to_device(data, resolve_device(device)).to(torch.float32)
+    # int8 blockwise quantisation through the port's kernel (bf16 is read as is)
+    dev = resolve_device(device)
+    if data.dtype == BF16:
+        x = _to_device(data.view(np.int16), dev).view(torch.bfloat16)
+    else:
+        x = _to_device(data, dev).to(torch.float32)
     q, s = quantize_blockwise(x, block=block)
     q_np, s_np = q.cpu().numpy(), s.cpu().numpy()
     payload = np.concatenate([q_np.reshape(-1).view(np.uint8), s_np.view(np.uint8)])
@@ -86,17 +106,21 @@ def decode_shard(enc: str, payload: np.ndarray, dtype: str, shape,
     meta = meta or {}
     shape = tuple(shape)
     payload = np.asarray(payload, np.uint8)
+    dt = np_dtype(dtype)
     if enc == "raw":
-        return payload.view(np.dtype(dtype)).reshape(shape)
+        return payload.view(dt).reshape(shape)
     if enc == "zlib":
         rawb = zlib.decompress(payload.tobytes())
-        return np.frombuffer(rawb, np.dtype(dtype)).reshape(shape).copy()
+        return np.frombuffer(rawb, dt).reshape(shape).copy()
     if enc == "int8":
         block = int(meta["block"])
         n_blocks = int(meta["n_blocks"])
         dev = resolve_device(device)
         q = _to_device(payload[:n_blocks * block].view(np.int8).reshape(n_blocks, block), dev)
         s = _to_device(payload[n_blocks * block:].view(np.float32), dev)
+        if dt == BF16:         # q * s in float32, rounded once to bf16, as the reference
+            x = dequantize_blockwise(q, s, shape, block=block, dtype=torch.bfloat16)
+            return x.view(torch.int16).cpu().numpy().view(BF16)
         x = dequantize_blockwise(q, s, shape, block=block, dtype=torch.float32)
-        return x.cpu().numpy().astype(np.dtype(dtype), copy=False)
+        return x.cpu().numpy().astype(dt, copy=False)
     raise ValueError(f"unknown encoding {enc!r}")

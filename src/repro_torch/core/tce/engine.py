@@ -8,10 +8,9 @@ index, joined with ``/`` (``step``, ``rng``,
 ``params/segments/stack/l0/mix/wq``, ``opt/m/tok/table/q`` for an int8
 moment), so a checkpoint written by either package restores in the other.
 
-numpy has no bfloat16, so a bf16 tensor flattens to its uint16 bit pattern
-and comes back bit for bit; such leaves do not cross to the reference, which
-stores them as ml_dtypes bfloat16. The reference's ``TCEngine`` waits for a
-later slice of the port.
+numpy has no bfloat16, so a bf16 tensor flattens to its bit pattern in the
+codec's :data:`~repro_torch.core.tce.codec.BF16` carrier and comes back bit
+for bit. The reference's ``TCEngine`` waits for a later slice of the port.
 """
 from __future__ import annotations
 
@@ -19,6 +18,8 @@ from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+
+from .codec import BF16
 
 
 def _is_namedtuple(x) -> bool:
@@ -43,8 +44,7 @@ def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
-            t = t.view(torch.int16)
-            return t.numpy().view(np.uint16)
+            return t.view(torch.int16).numpy().view(BF16)
         return t.numpy()
     return np.asarray(leaf)
 
@@ -58,10 +58,11 @@ def _like(leaf, arr: np.ndarray):
     if not isinstance(leaf, torch.Tensor):
         return arr
     arr = np.asarray(arr)
-    if leaf.dtype == torch.bfloat16 and arr.dtype == np.uint16:
+    if arr.dtype == BF16:
         t = torch.from_numpy(np.array(arr.view(np.int16), copy=True)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.array(arr, copy=True)).to(leaf.dtype)
+        t = torch.from_numpy(np.array(arr, copy=True))
+    t = t.to(leaf.dtype)
     return t.reshape(leaf.shape).to(leaf.device)
 
 

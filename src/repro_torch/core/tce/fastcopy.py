@@ -1,41 +1,17 @@
-"""Byte accounting and streaming checksums for the checkpoint datapath.
+"""Streaming checksums for the checkpoint datapath.
 
 The port's copy of what the datapath uses from ``repro.core.tce.fastcopy``:
-the global :data:`METER` of bytes physically copied, and
 :func:`crc32_stream`, a crc32 over a buffer without materialising
-``tobytes()``. The chunked multi-threaded copy into cache arenas waits for
-the port of the TCE engine.
+``tobytes()``. The reference's copy meter and its chunked multi-threaded copy
+into cache arenas wait for the port of the TCE engine, which uses them.
 """
 from __future__ import annotations
 
-import threading
 import zlib
 
 import numpy as np
 
 CRC_CHUNK = 1 << 20                  # streaming-crc window (cache-resident)
-
-
-class CopyMeter:
-    """Thread-safe count of bytes physically copied through the datapath."""
-
-    def __init__(self):
-        self._n = 0
-        self._lock = threading.Lock()
-
-    def add(self, nbytes: int) -> None:
-        with self._lock:
-            self._n += int(nbytes)
-
-    def read(self) -> int:
-        return self._n
-
-    def reset(self) -> None:
-        with self._lock:
-            self._n = 0
-
-
-METER = CopyMeter()
 
 
 def crc32_stream(buf, chunk: int = CRC_CHUNK) -> int:

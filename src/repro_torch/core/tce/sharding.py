@@ -1,20 +1,19 @@
-"""Checkpoint shard layout + topology-change resharding.
+"""Checkpoint shard layout.
 
-The port's own copy of ``repro.core.tce.sharding`` (numpy only, line for
-line), so that both packages cut a state into the same shards.
+The port's own copy of ``repro.core.tce.sharding`` (line for line, but for
+the dtype name of a bf16 leaf, see ``codec.BF16``), so that both packages cut
+a state into the same shards. The reference's ``reshard`` waits for the port
+of the TCE engine, which calls it.
 
 The engine stores *named shards*: each leaf of the train state is block-
 partitioned along its axis 0 across node ranks (ZeRO-style; leaves whose axis0
 does not divide are owned by rank ``hash(path) % n`` — ownership, not
 replication, so save volume matches Eq. (1) behaviour). Every shard carries
-``(global_shape, axis, start, stop)`` so a checkpoint written on N nodes can be
-**resharded** and restored on M != N nodes (elastic shrink/grow — beyond-paper
-extension, see DESIGN.md §7).
+``(global_shape, axis, start, stop)``.
 
 Zero-copy contract: ``shard_state`` never materialises shard bytes — every
 shard is a *view* into the caller's leaf (axis-0 slices of C-contiguous
-arrays stay contiguous). The single physical copy in the save path happens
-when ``CacheServer.put`` moves these views straight into arena slabs.
+arrays stay contiguous).
 """
 from __future__ import annotations
 
@@ -22,6 +21,8 @@ from dataclasses import dataclass, asdict
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from .codec import dtype_name
 
 
 @dataclass(frozen=True)
@@ -66,13 +67,13 @@ def shard_state(state: Dict[str, np.ndarray], n_nodes: int
             start = 0
             for r in range(n_nodes):
                 size = block + (1 if r < extra else 0)
-                spec = ShardSpec(path, arr.shape, str(arr.dtype), 0,
+                spec = ShardSpec(path, arr.shape, dtype_name(arr.dtype), 0,
                                  start, start + size)
                 nodes[r][path] = (spec, arr[start:start + size])
                 start += size
         else:
             r = _owner(path, n_nodes)
-            spec = ShardSpec(path, arr.shape, str(arr.dtype), -1, 0, 0)
+            spec = ShardSpec(path, arr.shape, dtype_name(arr.dtype), -1, 0, 0)
             nodes[r][path] = (spec, arr)
     return nodes
 
@@ -110,8 +111,3 @@ def unshard_state(node_shards: List[Optional[NodeShards]]
             spec0.global_shape)
     return out
 
-
-def reshard(node_shards: List[Optional[NodeShards]], new_n: int
-            ) -> List[NodeShards]:
-    """Re-partition a checkpoint onto a different node count (elastic)."""
-    return shard_state(unshard_state(node_shards), new_n)

@@ -9,7 +9,8 @@ reads in the other. The only addition is ``device``, passed down to the
 codec: where an ``int8`` leaf is quantised or dequantised (default ``cuda``).
 
 The reference's ``SharedBandwidth``, ``NASStore``, ``ModeledStore`` and
-``TieredStore`` wait for the port of the TCE engine.
+``TieredStore``, its per-job namespaces and its chain-safe step deletion
+wait for the port of the TCE engine, which calls them.
 """
 from __future__ import annotations
 
@@ -21,51 +22,21 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .codec import decode_shard, encode_shard, is_lossless_path
-from .fastcopy import METER, crc32_stream
+from .codec import decode_shard, dtype_name, encode_shard, is_lossless_path
+from .fastcopy import crc32_stream
 from .sharding import NodeShards, ShardSpec
-
-
-class ChainIntegrityError(RuntimeError):
-    """Deleting this step would strand delta leaves that reference it."""
 
 
 class DiskStore:
     """step -> {rank -> NodeShards}; manifest written last, atomically.
 
-    ``legacy_crc=True`` restores the pre-datapath full-buffer ``tobytes()``
-    checksum copies (for A/B benchmarking only). ``device`` is where ``int8``
-    leaves are (de)quantised.
+    ``device`` is where ``int8`` leaves are (de)quantised.
     """
 
-    def __init__(self, root: str, *, legacy_crc: bool = False, device=None):
+    def __init__(self, root: str, *, device=None):
         self.root = Path(root)
         self.root.mkdir(parents=True, exist_ok=True)
-        self.legacy_crc = legacy_crc
         self.device = device
-        self.stats = {"bytes_stored": 0, "bytes_raw": 0, "leaves_written": 0,
-                      "leaves_ref": 0, "bytes_read_stored": 0,
-                      "leaves_rematerialized": 0}
-
-    def namespace(self, job_id: str) -> "DiskStore":
-        """A per-job checkpoint namespace inside this shared store root.
-
-        Co-located fleet jobs write the same step keys; namespacing keeps
-        ``<root>/ns_<job>/step_*`` trees disjoint so they can never collide
-        on a step directory or overwrite each other's manifests. Subclasses
-        share their bandwidth model (one NAS under all namespaces)."""
-        import zlib as _zlib
-        safe = "".join(c if c.isalnum() or c in "-_." else "_"
-                       for c in job_id)
-        if safe != job_id:
-            # sanitisation must stay injective: "job/1" and "job:1" both
-            # map to "job_1", so disambiguate with a hash of the raw id
-            safe += f"-{_zlib.crc32(job_id.encode()) & 0xFFFFFFFF:08x}"
-        return type(self)(str(self.root / f"ns_{safe}"),
-                          **self._namespace_kwargs())
-
-    def _namespace_kwargs(self) -> dict:
-        return {"legacy_crc": self.legacy_crc, "device": self.device}
 
     # -- paths ---------------------------------------------------------- #
     def _step_dir(self, step: int) -> Path:
@@ -76,15 +47,6 @@ class DiskStore:
 
     def _manifest(self, step: int) -> Path:
         return self._step_dir(step) / "manifest.json"
-
-    def _crc(self, data) -> int:
-        if self.legacy_crc:
-            import zlib
-            buf = (np.ascontiguousarray(data).tobytes()
-                   if isinstance(data, np.ndarray) else bytes(data))
-            METER.add(len(buf))              # the copy tobytes() materialises
-            return zlib.crc32(buf) & 0xFFFFFFFF
-        return crc32_stream(data)
 
     # -- write ---------------------------------------------------------- #
     def write_rank(self, step: int, rank: int, shards: NodeShards, *,
@@ -104,18 +66,15 @@ class DiskStore:
         d.mkdir(parents=True, exist_ok=True)
         refs = refs or {}
         stored_total = 0
-        raw_total = 0
         index = []
         for i, (path, (spec, data)) in enumerate(sorted(shards.items())):
             data = np.ascontiguousarray(data)
-            raw_total += data.nbytes
-            ent = {"spec": spec.to_dict(), "dtype": str(data.dtype),
+            ent = {"spec": spec.to_dict(), "dtype": dtype_name(data.dtype),
                    "shape": list(data.shape), "nbytes_raw": int(data.nbytes)}
             if path in refs:
                 home_step, digest = refs[path]
                 ent.update({"ref_step": int(home_step), "digest": int(digest)})
                 index.append(ent)
-                self.stats["leaves_ref"] += 1
                 continue
             enc, payload, meta = encode_shard(
                 data, codec,
@@ -130,18 +89,15 @@ class DiskStore:
             os.replace(tmp, d / fname)   # atomic
             stored_total += payload.nbytes
             digest = (digests[path] if digests and path in digests
-                      else self._crc(data))
+                      else crc32_stream(data))
             ent.update({"file": fname, "enc": enc, "meta": meta,
-                        "crc32": int(self._crc(payload)),
+                        "crc32": int(crc32_stream(payload)),
                         "digest": int(digest),
                         "nbytes_stored": int(payload.nbytes)})
             index.append(ent)
-            self.stats["leaves_written"] += 1
         tmp = d / "index.json.tmp"
         tmp.write_text(json.dumps(index))
         os.replace(tmp, d / "index.json")
-        self.stats["bytes_stored"] += stored_total
-        self.stats["bytes_raw"] += raw_total
         return stored_total
 
     def commit(self, step: int, n_ranks: int, meta: Optional[dict] = None,
@@ -178,17 +134,10 @@ class DiskStore:
         return json.loads((self._rank_dir(step, rank) / "index.json").read_text())
 
     def read_rank(self, step: int, rank: int, verify: bool = True) -> NodeShards:
-        shards, _ = self._read_rank_impl(step, rank, verify)
-        return shards
-
-    def _read_rank_impl(self, step: int, rank: int,
-                        verify: bool = True) -> Tuple[NodeShards, int]:
-        """Read one rank's shards, resolving delta refs. Returns
-        ``(shards, stored_bytes_read)`` — the stored count is what a
-        bandwidth model should charge (refs read their home step's file)."""
+        """Read one rank's shards, resolving delta refs to the step whose
+        rank dir holds each leaf's file."""
         index = self.rank_index(step, rank)
         out: NodeShards = {}
-        stored_read = 0
         # steady-state delta checkpoints point many leaves at the same home
         # step — parse each referenced index.json once, not once per leaf
         home_indexes: Dict[int, Dict[str, dict]] = {}
@@ -215,123 +164,14 @@ class DiskStore:
                     raise IOError(f"delta ref cycle for {spec.path}")
             fpath = self._rank_dir(home, rank) / resolved["file"]
             payload = np.fromfile(fpath, np.uint8)
-            stored_read += payload.nbytes
-            if verify and int(self._crc(payload)) != resolved["crc32"]:
+            if verify and int(crc32_stream(payload)) != resolved["crc32"]:
                 raise IOError(f"checksum mismatch for {spec.path} in rank {rank}")
             data = decode_shard(resolved.get("enc", "raw"), payload,
                                 ent["dtype"], ent["shape"],
                                 resolved.get("meta"), device=self.device)
             out[spec.path] = (spec, data)
-        self.stats["bytes_read_stored"] += stored_read
-        return out, stored_read
+        return out
 
     def read_all(self, step: int) -> List[NodeShards]:
         m = self.manifest(step)
         return [self.read_rank(step, r) for r in range(m["n_ranks"])]
-
-    def has_step(self, step: int) -> bool:
-        """True if the step is committed here (manifest visible)."""
-        return self._manifest(step).exists()
-
-    # -- chain-safe GC --------------------------------------------------- #
-    def chain_dependents(self, step: int) -> List[int]:
-        """Steps whose rank indexes still hold delta refs into ``step``.
-
-        Refs are path-compressed (each points straight at the step whose
-        rank dir holds the bytes), so one scan of every other step's index
-        files finds every inbound edge."""
-        deps = set()
-        for d in self.root.glob("step_*"):
-            try:
-                other = int(d.name.split("_", 1)[1])
-            except (IndexError, ValueError):
-                continue
-            if other == step:
-                continue
-            for idx in d.glob("rank_*/index.json"):
-                try:
-                    index = json.loads(idx.read_text())
-                except Exception:
-                    continue
-                if any(int(e.get("ref_step", -1)) == step for e in index):
-                    deps.add(other)
-                    break
-        return sorted(deps)
-
-    def rematerialize_step(self, step: int) -> int:
-        """Copy ``step``'s payloads into every dependent's rank dir and
-        rewrite their refs as self-contained file entries, so ``step`` can
-        be deleted without stranding the chain. Returns bytes copied."""
-        copied = 0
-        for dep in self.chain_dependents(step):
-            m = self.manifest(dep)
-            for rank in range(int(m["n_ranks"])):
-                rdir = self._rank_dir(dep, rank)
-                try:
-                    index = self.rank_index(dep, rank)
-                except FileNotFoundError:
-                    continue
-                home = {e["spec"]["path"]: e
-                        for e in self.rank_index(step, rank)}
-                changed = False
-                for ent in index:
-                    if int(ent.get("ref_step", -1)) != step:
-                        continue
-                    src = home.get(ent["spec"]["path"])
-                    if src is None:
-                        raise ChainIntegrityError(
-                            f"step {dep} rank {rank} refs "
-                            f"{ent['spec']['path']} missing from step {step}")
-                    if "file" not in src:
-                        # the home entry is itself a (deeper) ref: just
-                        # repoint the dependent one hop further down
-                        ent["ref_step"] = int(src["ref_step"])
-                        changed = True
-                        continue
-                    fname = f"rm{step:08d}_{src['file']}"
-                    payload = np.fromfile(
-                        self._rank_dir(step, rank) / src["file"], np.uint8)
-                    tmp = rdir / (fname + ".tmp")
-                    with open(tmp, "wb") as f:
-                        f.write(memoryview(payload))
-                        f.flush()
-                        os.fsync(f.fileno())
-                    os.replace(tmp, rdir / fname)
-                    METER.add(payload.nbytes)
-                    copied += payload.nbytes
-                    ent.pop("ref_step", None)
-                    ent.update({"file": fname,
-                                "enc": src.get("enc", "raw"),
-                                "meta": src.get("meta"),
-                                "crc32": int(src["crc32"]),
-                                "digest": int(src["digest"]),
-                                "nbytes_stored": int(src["nbytes_stored"])})
-                    self.stats["leaves_rematerialized"] += 1
-                    changed = True
-                if changed:
-                    tmp = rdir / "index.json.tmp"
-                    tmp.write_text(json.dumps(index))
-                    os.replace(tmp, rdir / "index.json")
-        self.stats["bytes_stored"] += copied
-        return copied
-
-    def delete_step(self, step: int, *, rematerialize: bool = False,
-                    force: bool = False) -> None:
-        """Delete one step — refusing, by default, to strand a chain.
-
-        If other steps' delta refs still point into this one, deletion
-        raises :class:`ChainIntegrityError` unless ``rematerialize=True``
-        (migrate the shared payloads into the dependents first) or
-        ``force=True`` (the historical unchecked behaviour)."""
-        import shutil
-        if not force:
-            deps = self.chain_dependents(step)
-            if deps:
-                if not rematerialize:
-                    raise ChainIntegrityError(
-                        f"step {step} is still the delta base of "
-                        f"step(s) {deps}; pass rematerialize=True to "
-                        "migrate the chain or force=True to strand it")
-                self.rematerialize_step(step)
-        shutil.rmtree(self._step_dir(step), ignore_errors=True)
-

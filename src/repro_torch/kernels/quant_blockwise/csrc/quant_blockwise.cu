@@ -24,10 +24,11 @@
 //
 // What this design does about that bound: one warp per quant block, so the
 // amax is a register reduction and five xor shuffles, with no shared memory
-// and no second kernel. For float32 input and a block that is a multiple of
-// 128 (up to 1024) each lane loads 16 bytes per vector, a warp 512 contiguous
-// bytes, and keeps the block in registers for the second pass, so every byte
-// of x is read once; q leaves as 4-byte words. Other blocks, bf16 input and
+// and no second kernel. For float32 input and a block of 128, 256 or 512 (the
+// codec's 256 and the reference's test cases) each lane loads 16 bytes per
+// vector, a warp 512 contiguous bytes, and keeps the block in registers for
+// the second pass, so every byte of x is read once; q leaves as 4-byte words.
+// Other blocks, bf16 input and
 // unaligned pointers take a generic path that reads the block twice (the
 // second read hits L1). The ragged tail (n not a multiple of the block) is
 // read as zeros, which is the zero padding of the reference's wrapper without
@@ -199,7 +200,8 @@ inline unsigned int warp_grid(long long nblocks) {
 
 inline bool aligned(const void* p, uintptr_t a) { return reinterpret_cast<uintptr_t>(p) % a == 0; }
 
-constexpr int MAX_VPL = 8;
+// blocks of 128 * vpl values with a vector instantiation
+inline bool vec_block(int block) { return block == 128 || block == 256 || block == 512; }
 
 }  // namespace repro_qb
 
@@ -218,12 +220,11 @@ extern "C" int qb_quantize(const void* x, int x_dtype, void* q, void* s, long lo
   const unsigned int grid = warp_grid(nblocks);
   auto* qo = static_cast<signed char*>(q);
   auto* so = static_cast<float*>(s);
-  const int vpl = block / 128;
-  if (x_dtype == 0 && block % 128 == 0 && vpl <= MAX_VPL && aligned(x, 16) && aligned(q, 4)) {
+  if (x_dtype == 0 && vec_block(block) && aligned(x, 16) && aligned(q, 4)) {
     const auto* xf = static_cast<const float*>(x);
-    switch (vpl) {
+    switch (block / 128) {
 #define QB_Q(V) case V: quant_f32_vec<V><<<grid, THREADS, 0, st>>>(xf, qo, so, n, nblocks); break;
-      QB_Q(1) QB_Q(2) QB_Q(3) QB_Q(4) QB_Q(5) QB_Q(6) QB_Q(7) QB_Q(8)
+      QB_Q(1) QB_Q(2) QB_Q(4)
 #undef QB_Q
     }
   } else if (x_dtype == 0) {
@@ -247,15 +248,14 @@ extern "C" int qb_dequantize(const void* q, const void* s, void* out, int out_dt
   const auto* qi = static_cast<const signed char*>(q);
   const auto* si = static_cast<const float*>(s);
   const int vpl = block / 128;
-  const bool vec = block % 128 == 0 && vpl <= MAX_VPL && aligned(q, 4) &&
-                   aligned(out, out_dtype == 0 ? 16 : 8);
+  const bool vec = vec_block(block) && aligned(q, 4) && aligned(out, out_dtype == 0 ? 16 : 8);
   if (vec) {
     const unsigned int grid = warp_grid(nblocks);
     if (out_dtype == 0) {
       auto* o = static_cast<float*>(out);
       switch (vpl) {
 #define QB_D(V) case V: dequant_vec<float, V><<<grid, THREADS, 0, st>>>(qi, si, o, n, nblocks); break;
-        QB_D(1) QB_D(2) QB_D(3) QB_D(4) QB_D(5) QB_D(6) QB_D(7) QB_D(8)
+        QB_D(1) QB_D(2) QB_D(4)
 #undef QB_D
       }
     } else {
@@ -263,7 +263,7 @@ extern "C" int qb_dequantize(const void* q, const void* s, void* out, int out_dt
       switch (vpl) {
 #define QB_D(V) \
   case V: dequant_vec<__nv_bfloat16, V><<<grid, THREADS, 0, st>>>(qi, si, o, n, nblocks); break;
-        QB_D(1) QB_D(2) QB_D(3) QB_D(4) QB_D(5) QB_D(6) QB_D(7) QB_D(8)
+        QB_D(1) QB_D(2) QB_D(4)
 #undef QB_D
       }
     }

@@ -213,8 +213,8 @@ def _card_2d(x, block, dev, out_dtype=torch.float32):
     assert _equal(_np(s), _np(sr)) and _equal(_np(xd.float()), _np(xr.float()))
 
 
-# 2-D cases: the reference's, blocks that take the generic path (not a
-# multiple of 128, or above 1024), and every vector width of the fast path.
+# 2-D cases: the reference's, which are the blocks of the vector path (128,
+# 256, 512), and blocks that take the generic path (every other size).
 CARD_2D = CASES_2D + [(3, 96, 96, 0), (5, 300, 100, 0), (2, 2048, 2048, 0),
                       (4, 384 * 2, 384, 0), (3, 640, 640, 0), (2, 768, 768, 0), (2, 1792, 896, 0),
                       (2, 1024, 1024, 0)]
