@@ -4,13 +4,18 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (Hopper: the kernels are built for sm_90a). It builds the
-port's kernels (flash attention, blockwise int8 quantise / dequantise) from
-the sources in this checkout into ``build/``, one nvcc per source, and holds
-each kernel against its plain PyTorch version on the card. Then it drives the
-port's two main paths at llama3-8b's full width, with seeded random weights:
+port's kernels (flash attention, blockwise int8 quantise / dequantise, the
+SSD chunked scan) from the sources in this checkout into ``build/``, one nvcc
+per source, and holds each kernel against its plain PyTorch version on the
+card. Then it drives the port's main paths with seeded random weights:
 
-* serving, full depth, bf16 (``repro_torch.launch.serve``): prefill through
-  the flash-attention kernel, then decode;
+* serving llama3-8b, full width and depth, bf16
+  (``repro_torch.launch.serve``): prefill through the flash-attention
+  kernel, then decode;
+* serving mamba2-130m, full width and depth, bf16, 8 x 4096 + 32: prefill
+  through the SSD-scan kernel (one launch per layer), then the recurrent
+  decode; decode against forward at full width in float32, and a float32
+  full-depth prefill through the kernel against the plain scan;
 * one training rank, 4 layers (an Adam state of all 32 does not fit one
   card): ``make_train_step`` for 8 timed steps of 4 x 1024 tokens, then a
   TCE checkpoint of the trained params through ``DiskStore`` with the
@@ -65,6 +70,33 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2.5e-2}
 LOGITS_REL_TOL = 0.1
 # Decode vs forward, float32, full width, 2 layers (tests/test_models.py).
 DECODE_TOL = 2e-4
+# Prefill logits, kernel vs plain, float32 through all 24 mamba2 layers: the
+# two differ only in summation order (~1e-7 relative per layer); allow 1e-3 of
+# the logits' scale, 100x below the bf16 limit above.
+F32_LOGITS_REL_TOL = 1e-3
+
+# The SSM serving path: mamba2-130m, one wave of 8 requests x 4096-token
+# prompts (16 chunks of 256), 32 generated tokens, full depth (24 layers).
+SSM_ARCH, SSM_REQUESTS, SSM_PROMPT_LEN, SSM_GEN = "mamba2-130m", 8, 4096, 32
+SSD_SRC = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_scan/ssd_scan.py:24"
+# SSD kernel vs plain (tests/test_kernels.py): y within this share of max |y|,
+# the final state at rtol = atol (f32: the same float32 arithmetic in another
+# summation order; bf16: x, B, C are bf16, y is rounded to bf16 once).
+SSD_Y_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+SSD_STATE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# (b, s, nh, p, g, n, chunk, dtype): tests/test_kernels.py SSD_CASES, the
+# chunks of the decode check's 17-token forward and 16-token prefill, and
+# the main path's shape last (x, B, C as views into the conv output).
+SSD_CASES = [
+    (2, 128, 8, 32, 1, 16, 64, torch.float32),
+    (1, 256, 4, 16, 2, 8, 32, torch.float32),
+    (1, 64, 2, 64, 1, 32, 64, torch.float32),
+    (2, 128, 4, 32, 1, 16, 32, torch.bfloat16),
+    (2, 16, 24, 64, 1, 128, 16, torch.float32),
+    (2, 17, 24, 64, 1, 128, 17, torch.float32),
+]
+MAIN_SSD = (SSM_REQUESTS, SSM_PROMPT_LEN, 24, 64, 1, 128, 256, torch.bfloat16)
 
 # (b, s, t, h, kh, d, causal, dtype): the shapes of tests/test_kernels.py
 # FA_CASES, two ragged cases, and the main-path shape last.
@@ -164,7 +196,8 @@ def quant_bound(n: int, block: int, quantise: bool):
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes"), nbytes
 
 
-KERNEL_KINDS = (("matmul", ("gemm", "nvjet", "cutlass", "xmma", "matmul")),
+KERNEL_KINDS = (("ssd_scan", ("ssd_fwd",)), ("flash_attention", ("fa_fwd",)),
+                ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "matmul")),
                 ("softmax", ("softmax",)), ("reduce", ("reduce",)),
                 ("gather / scatter", ("index", "gather", "scatter")),
                 ("elementwise / copy", ("elementwise", "copy")))
@@ -263,28 +296,46 @@ def phase_kernel(fa_ops, fa_ref):
     return main
 
 
-def phase_serve(fa_ops, serve_cli, engine):
+def phase_serve(ops, serve_cli, engine, arch, requests, prompt_len, gen, kernel):
+    """One wave through ``repro_torch.launch.serve.main`` at full size, the
+    kernel's launches counted in that run alone; then a warm wave, and the
+    prefill logits against an all-plain prefill."""
     from repro_torch.configs import get_config
 
     torch.cuda.reset_peak_memory_stats()
-    argv = ["--arch", ARCH, "--requests", str(REQUESTS), "--prompt-len", str(PROMPT_LEN),
-            "--gen", str(GEN), "--seed", str(SEED), "--device", "cuda"]
-    fa_ops.LAUNCHES = 0
+    argv = ["--arch", arch, "--requests", str(requests), "--prompt-len", str(prompt_len),
+            "--gen", str(gen), "--seed", str(SEED), "--device", "cuda"]
+    ops.LAUNCHES = 0
     res = serve_cli.main(argv)                  # the main path, counted
-    launches = fa_ops.LAUNCHES
+    launches = ops.LAUNCHES
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cfg, params, prompts = res["cfg"], res["params"], res["prompts"]
-    check(cfg == get_config(ARCH), "serve did not run the full-size config")
+    check(cfg == get_config(arch), "serve did not run the full-size config")
     toks = res["tokens"]
-    check(tuple(toks.shape) == (REQUESTS, GEN), f"tokens shape {tuple(toks.shape)}")
+    check(tuple(toks.shape) == (requests, gen), f"tokens shape {tuple(toks.shape)}")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "token out of [0, vocab)")
     for key in ("prefill_logits", "last_logits"):
         check(bool(torch.isfinite(res[key].float()).all()), f"non-finite {key}")
     check(launches == cfg.n_layers,
-          f"flash_attention launched {launches} times in the serve run, want {cfg.n_layers}")
+          f"{kernel} launched {launches} times in the serve run, want {cfg.n_layers}")
 
     # Warm wave: steady-state times (cuBLAS and allocator already warm).
-    warm = serve_cli.serve_wave(params, cfg, prompts, GEN)
+    warm = serve_cli.serve_wave(params, cfg, prompts, gen)
+
+    # One more prefill under the profiler: device time by kernel kind, and
+    # its sum over the prefill's wall time (the busy share).
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof, torch.inference_mode():
+        t0 = time.perf_counter()
+        engine.prefill_fn(params, cfg, {"tokens": prompts})
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
+    by_kind: dict = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            kind = kernel_kind(e.key)
+            by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
+    busy_ms = sum(by_kind.values())
 
     # Kernel vs plain through the whole prefill.
     with torch.inference_mode():
@@ -294,42 +345,163 @@ def phase_serve(fa_ops, serve_cli, engine):
     agree = float((res["prefill_logits"].argmax(-1) == plain_logits.argmax(-1)).float().mean())
     check(diff <= LOGITS_REL_TOL * scale,
           f"prefill logits kernel vs plain: max |diff| {diff} > {LOGITS_REL_TOL} x {scale}")
-    out = {"phase": "serve", "arch": ARCH, "n_params": cfg.n_params(), "n_layers": cfg.n_layers,
-           "d_model": cfg.d_model, "requests": REQUESTS, "prompt_len": PROMPT_LEN, "gen": GEN,
-           "dtype": cfg.compute_dtype, "fa_launches": launches,
+    out = {"phase": "serve", "arch": arch, "n_params": cfg.n_params(), "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "requests": requests, "prompt_len": prompt_len, "gen": gen,
+           "dtype": cfg.compute_dtype, f"{kernel}_launches": launches,
            "first_prefill_ms": res["prefill_s"] * 1e3, "prefill_ms": warm["prefill_s"] * 1e3,
-           "prefill_tok_s": REQUESTS * PROMPT_LEN / warm["prefill_s"],
-           "decode_ms_per_step": warm["decode_s"] / (GEN - 1) * 1e3,
-           "decode_tok_s": REQUESTS * (GEN - 1) / warm["decode_s"],
+           "prefill_tok_s": requests * prompt_len / warm["prefill_s"],
+           "decode_ms_per_step": warm["decode_s"] / (gen - 1) * 1e3,
+           "decode_tok_s": requests * (gen - 1) / warm["decode_s"],
            "peak_mem_gb": peak_gb, "logits_max_abs_diff": diff, "logits_scale": scale,
            "logits_rel_tol": LOGITS_REL_TOL, "argmax_agree": agree,
-           "warm_tokens_equal": bool(torch.equal(warm["tokens"], toks))}
+           "warm_tokens_equal": bool(torch.equal(warm["tokens"], toks)),
+           "profiled_prefill_ms": profiled_ms, "profiled_kernel_ms_by_kind": by_kind,
+           "profiled_kernel_ms": busy_ms, "device_busy_share_of_prefill": busy_ms / profiled_ms}
     emit(out)
-    return launches
+    return launches, out
 
 
-def phase_decode_check(engine, model_mod):
+def phase_decode_check(engine, model_mod, ops, arch):
     """Decode position s-1 after prefilling s-1 tokens == forward over s
-    tokens (tests/test_models.py), full width, float32, 2 layers."""
+    tokens (tests/test_models.py), full width, float32, 2 layers; forward and
+    prefill go through the kernel."""
     from repro_torch.configs import get_config
 
-    cfg = dataclasses.replace(get_config(ARCH), n_layers=2, compute_dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, compute_dtype="float32")
     params = model_mod.init_params(cfg, seed=2, device="cuda")
     b, s = 2, 17
     g = torch.Generator(device="cuda").manual_seed(5)
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device="cuda")
+    before = ops.LAUNCHES
     with torch.inference_mode():
         full, _, _, _ = model_mod.forward(params, cfg, {"tokens": tokens}, mode="train")
         _, cache = engine.prefill_fn(params, cfg, {"tokens": tokens[:, :s - 1]})
         cache = engine.pad_cache(cfg, cache, b, s + 4)
         pos = torch.full((b,), s - 1, dtype=torch.long, device="cuda")
         dec, _ = engine.decode_fn(params, cfg, tokens[:, s - 1], cache, pos)
+    launches = ops.LAUNCHES - before
     want = full[:, s - 1]
     err = float((dec - want).abs().max())
     ok = bool(((dec - want).abs() <= DECODE_TOL + DECODE_TOL * want.abs()).all())
-    emit({"phase": "decode_matches_forward", "n_layers": 2, "d_model": cfg.d_model,
-          "dtype": "float32", "max_abs_err": err, "tol": DECODE_TOL, "ok": ok})
+    emit({"phase": "decode_matches_forward", "arch": arch, "n_layers": 2,
+          "d_model": cfg.d_model, "dtype": "float32", "kernel_launches": launches,
+          "max_abs_err": err, "tol": DECODE_TOL, "ok": ok})
+    check(launches == 2 * cfg.n_layers, f"{launches} kernel launches in forward + prefill")
     check(ok, f"decode vs forward: max abs err {err}")
+
+
+def phase_f32_prefill_check(engine, model_mod, ops, arch):
+    """Prefill last-token logits, kernel vs plain, at full width and depth in
+    float32 (2 x 1024 tokens, 4 chunks): where the bf16 serve phase's gap is
+    bf16 roundings carried through every layer, this one is the kernel's own
+    summation order alone."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+    params = model_mod.init_params(cfg, seed=3, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1024), generator=g, device="cuda")
+    before = ops.LAUNCHES
+    with torch.inference_mode():
+        got, _ = engine.prefill_fn(params, cfg, {"tokens": tokens})
+        launches = ops.LAUNCHES - before
+        want, _ = engine.prefill_fn(params, cfg, {"tokens": tokens}, attn_impl="plain")
+    diff = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    emit({"phase": "f32_prefill_kernel_vs_plain", "arch": arch, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "tokens": list(tokens.shape), "kernel_launches": launches,
+          "logits_max_abs_diff": diff, "logits_scale": scale, "rel_tol": F32_LOGITS_REL_TOL})
+    check(launches == cfg.n_layers, f"{launches} kernel launches in the f32 prefill")
+    check(diff <= F32_LOGITS_REL_TOL * scale,
+          f"f32 prefill logits kernel vs plain: max |diff| {diff} > {F32_LOGITS_REL_TOL} x {scale}")
+
+
+def ssd_inputs(case, seed):
+    """x, dt, A, B, C for a case: x, B and C as views into one (b, s, conv_dim)
+    tensor, as the model hands them to the kernel."""
+    b, s, nh, p, g, n, chunk, dt = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d_in = nh * p
+    xbc = (torch.randn(b, s, d_in + 2 * g * n, generator=gen, device="cuda") * 0.5).to(dt)
+    x = xbc[..., :d_in].reshape(b, s, nh, p)
+    B = xbc[..., d_in:d_in + g * n].reshape(b, s, g, n)
+    C = xbc[..., d_in + g * n:].reshape(b, s, g, n)
+    dtv = torch.nn.functional.softplus(torch.randn(b, s, nh, generator=gen, device="cuda"))
+    A = -torch.exp(torch.randn(nh, generator=gen, device="cuda") * 0.3)
+    return x, dtv, A, B, C
+
+
+def ssd_bound(case):
+    """Least time (s) for the scan: x read and y written once, B, C, dt and A
+    read once, the final state written once; operations of the chunked
+    algorithm on the causal half of each chunk (C.B^T once per group, its
+    product with x dt, the chunk states and the inter-chunk term), at the
+    peak for the inputs' type."""
+    b, s, nh, p, g, n, chunk, dt = case
+    c = min(chunk, s)
+    pairs = c * (c + 1) // 2
+    flops = 2 * b * (s // c) * (g * n * pairs + nh * p * pairs + 2 * nh * c * p * n)
+    elt = torch.tensor([], dtype=dt).element_size()
+    nbytes = (2 * b * s * nh * p + 2 * b * s * g * n) * elt + 4 * (b * s * nh + nh + b * nh * p * n)
+    peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_S
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def phase_ssd_kernel(ssd_ops, ssd_ref):
+    """The SSD kernel vs its plain version on every listed shape and on the
+    init-state continuation, then its times at the main path's shape."""
+    rows = []
+
+    def compare(case, got, want, what):
+        (y, h), (wy, wh) = got, want
+        dt = case[7]
+        check(y.dtype == dt and y.shape == wy.shape and h.dtype == torch.float32
+              and h.shape == wh.shape, f"bad output {y.dtype} {tuple(y.shape)} {tuple(h.shape)}")
+        err = float((y.float() - wy.float()).abs().max())
+        scale = float(wy.float().abs().max()) + 1e-6
+        stol = SSD_STATE_TOL[dt]
+        state_ok = bool(((h - wh).abs() <= stol + stol * wh.abs()).all())
+        ok = err / scale < SSD_Y_TOL[dt] and state_ok
+        rows.append({"shape": list(case[:7]), "dtype": str(dt).split(".")[1], "what": what,
+                     "max_abs_err": err, "y_scale": scale, "y_tol": SSD_Y_TOL[dt],
+                     "state_max_abs_err": float((h - wh).abs().max()), "state_tol": stol,
+                     "ok": ok})
+        check(ok, f"ssd_scan disagrees with its plain version at {rows[-1]}")
+
+    for i, case in enumerate(SSD_CASES + [MAIN_SSD]):
+        x, dtv, A, B, C = ssd_inputs(case, seed=200 + i)
+        got = ssd_ops.ssd_scan(x, dtv, A, B, C, chunk=case[6])
+        torch.cuda.synchronize()
+        compare(case, got, ssd_ref.ssd_reference(x, dtv, A, B, C, chunk=min(case[6], case[1])),
+                "kernel vs plain")
+    # The continuation of tests/test_kernels.py: two halves, the second from
+    # the first one's final state, against the whole sequence.
+    case = (1, 128, 4, 16, 1, 8, 32, torch.float32)
+    x, dtv, A, B, C = ssd_inputs(case, seed=199)
+    half = case[1] // 2
+    _, h1 = ssd_ops.ssd_scan(x[:, :half], dtv[:, :half], A, B[:, :half], C[:, :half], chunk=32)
+    y2, h2 = ssd_ops.ssd_scan(x[:, half:], dtv[:, half:], A, B[:, half:], C[:, half:],
+                              chunk=32, init_state=h1)
+    torch.cuda.synchronize()
+    wy, wh = ssd_ref.ssd_reference(x, dtv, A, B, C, chunk=32)
+    compare(case, (y2, h2), (wy[:, half:], wh), "init-state continuation")
+    emit({"phase": "ssd_kernel_vs_plain", "cases": rows})
+
+    x, dtv, A, B, C = ssd_inputs(MAIN_SSD, seed=8)
+    chunk = MAIN_SSD[6]
+    kernel_ms = time_ms(lambda: ssd_ops.ssd_scan(x, dtv, A, B, C, chunk=chunk))
+    plain_ms = time_ms(lambda: ssd_ref.ssd_reference(x, dtv, A, B, C, chunk=chunk))
+    bound_s, bound_by, flops, nbytes = ssd_bound(MAIN_SSD)
+    main = {"phase": "ssd_kernel_timing", "shape": list(MAIN_SSD[:7]), "dtype": "bfloat16",
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+            "library": "none: no single PyTorch call computes the SSD scan",
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by, "gflop": flops / 1e9,
+            "mbytes": nbytes / 1e6, "kernel_tflops": flops / (kernel_ms * 1e-3) / 1e12,
+            "roofline_share": bound_s * 1e3 / kernel_ms,
+            "max_abs_err": rows[len(SSD_CASES)]["max_abs_err"]}
+    emit(main)
+    return main
 
 
 def phase_quant_kernel(qb_ops, qb_ref):
@@ -625,6 +797,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.quant_blockwise import ops as qb_ops
     from repro_torch.kernels.quant_blockwise import ref as qb_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
     from repro_torch.launch import serve as serve_cli
     from repro_torch.models import model as model_mod
     from repro_torch.serve import engine
@@ -633,9 +807,18 @@ def main() -> int:
     phase_device()
     phase_build(_build)
     timing = phase_kernel(fa_ops, fa_ref)
-    launches = phase_serve(fa_ops, serve_cli, engine)
+    launches, _ = phase_serve(fa_ops, serve_cli, engine, ARCH, REQUESTS, PROMPT_LEN, GEN,
+                              "fa")
     torch.cuda.empty_cache()
-    phase_decode_check(engine, model_mod)
+    phase_decode_check(engine, model_mod, fa_ops, ARCH)
+    torch.cuda.empty_cache()
+    ssd_timing = phase_ssd_kernel(ssd_ops, ssd_ref)
+    torch.cuda.empty_cache()
+    ssd_launches, _ = phase_serve(ssd_ops, serve_cli, engine, SSM_ARCH, SSM_REQUESTS,
+                                  SSM_PROMPT_LEN, SSM_GEN, "ssd")
+    torch.cuda.empty_cache()
+    phase_decode_check(engine, model_mod, ssd_ops, SSM_ARCH)
+    phase_f32_prefill_check(engine, model_mod, ssd_ops, SSM_ARCH)
     torch.cuda.empty_cache()
     quant = phase_quant_kernel(qb_ops, qb_ref)
     torch.cuda.empty_cache()
@@ -661,6 +844,12 @@ def main() -> int:
             "launches": ckpt[count], "max_abs_err": quant["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
+    kernels.append({
+        "name": "ssd_scan", "route": "cuda", "source": SSD_SRC, "replaces": SSD_REPLACES,
+        "launches": ssd_launches, "max_abs_err": ssd_timing["max_abs_err"],
+        "ms": ssd_timing["kernel_ms"], "plain_ms": ssd_timing["plain_ms"],
+        "bound_ms": ssd_timing["bound_ms"], "bound_by": ssd_timing["bound_by"],
+        "library_ms": None})
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 1)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

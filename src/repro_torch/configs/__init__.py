@@ -9,7 +9,7 @@ from __future__ import annotations
 import importlib
 from typing import Tuple
 
-ARCHS: Tuple[str, ...] = ("llama3-8b",)
+ARCHS: Tuple[str, ...] = ("llama3-8b", "mamba2-130m")
 
 # The reference registry's archs, so that an unported one is told apart
 # from a name that does not exist at all.

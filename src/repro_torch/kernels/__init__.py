@@ -8,4 +8,5 @@ version) and ``ref.py`` (the plain PyTorch version, the kernel's oracle).
 
   flash_attention   blocked online-softmax attention (causal + GQA), forward
   quant_blockwise   blockwise int8 quantise / dequantise (the TCE int8 codec)
+  ssd_scan          Mamba-2 SSD chunked scan (the SSM family's prefill)
 """

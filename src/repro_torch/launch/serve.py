@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --requests 8 --prompt-len 1024 --gen 32            # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+        --requests 8 --prompt-len 4096 --gen 32            # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 Counterpart of ``repro.launch.serve``, with the same flags plus ``--device``
@@ -35,6 +37,17 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return ap.parse_args(argv)
+
+
+def check_prompt_len(cfg: ModelConfig, prompt_len: int) -> None:
+    """An SSM prefill scans chunks of min(chunk, prompt) tokens, so a prompt
+    longer than one chunk must be a whole number of chunks (the reference
+    asserts ``s % chunk == 0``). Raises ValueError before any weight is made."""
+    if cfg.ssm is not None:
+        chunk = cfg.ssm.chunk
+        if prompt_len > chunk and prompt_len % chunk:
+            raise ValueError(f"{cfg.name}: a prompt of {prompt_len} tokens is longer than "
+                             f"one SSD chunk ({chunk}) but not a multiple of it")
 
 
 def make_prompts(cfg: ModelConfig, requests: int, prompt_len: int, seed: int,
@@ -89,6 +102,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    check_prompt_len(cfg, args.prompt_len)
     params = serve_params_cast(
         init_params(cfg, args.seed, device, dtype=cfg.compute_dtype), cfg)
     print(f"serving {cfg.name} ({cfg.n_params():,} params) on {device}, "

@@ -1,6 +1,19 @@
 """Top-level language model: embed -> segments -> final norm -> logits.
 
-Counterpart of ``repro.models.model`` for the decoder-only dense family.
+Counterpart of ``repro.models.model`` for the decoder-only dense and SSM
+families.
+
+``attn_impl`` picks the mixer's implementation in every layer, the same
+argument for both families:
+
+* ``"kernel"`` (the serving default): the hand-written kernel, flash
+  attention or the SSD chunked scan (their plain versions for tensors on the
+  CPU). Forward only.
+* ``"chunked"`` (the training default; ``"xla"`` is its other name):
+  ``chunked_attention``, or ``ssd_chunked`` for an SSM layer, differentiable,
+  as the reference trains.
+* ``"plain"``: the kernels' plain versions (``ssd_chunked`` for an SSM
+  layer), so that the card can hold a kernel prefill against an all-plain one.
 
 `Batch` contract (as in the reference):
   tokens     (b, s) integer  decoder token ids
@@ -85,8 +98,8 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             mode: str = "train", attn_impl: str = "kernel"):
     """Train / prefill forward. Returns (logits, cache_or_None, aux, x).
 
-    ``aux`` is the MoE auxiliary loss of the reference; the dense family
-    has none, so it is a zero scalar.
+    ``aux`` is the MoE auxiliary loss of the reference; the dense and SSM
+    families have none, so it is a zero scalar.
     """
     positions = _default_positions(batch)
     x = embed_tokens(params["tok"], batch["tokens"], cfg)
@@ -120,7 +133,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             attn_impl: str = "chunked") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(loss, {"ce", "loss"}) for the dense family, as the reference's loss_fn."""
+    """(loss, {"ce", "loss"}) as the reference's loss_fn (no MoE aux term)."""
     logits, _, _, _ = forward(params, cfg, batch, mode="train", attn_impl=attn_impl)
     ce = cross_entropy(logits, batch["labels"])
     return ce, {"ce": ce, "loss": ce}

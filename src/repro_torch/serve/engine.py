@@ -1,8 +1,8 @@
 """Serving steps: batched prefill and single-token decode with a KV cache.
 
 Counterpart of ``repro.serve.engine``. Serving runs parameters in the compute
-dtype (cast once at load). ``decode_fn`` updates the cache in place, as the
-reference's serve loop donates it.
+dtype (cast once at load). ``decode_fn`` updates the cache (attention k, v;
+SSM conv tail and state) in place, as the reference's serve loop donates it.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import torch
 from repro_torch.models import blocks
 from repro_torch.models import model as model_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import torch_dtype, tree_items, tree_map
+from repro_torch.models.params import torch_dtype, tree_map
 
 
 def serve_params_cast(params, cfg: ModelConfig):
@@ -37,17 +37,21 @@ def decode_fn(params, cfg: ModelConfig, token: torch.Tensor, cache,
 
 def pad_cache(cfg: ModelConfig, cache, batch: int, cache_len: int):
     """Copy a prefill cache into the front of a zero cache of ``cache_len``
-    positions (the reference's ``put`` into ``cache_struct(mode="zeros")``)."""
-    device = next(tree_items(cache))[1].device
-    big = blocks.cache_struct(cfg, batch, cache_len, device=device)
+    positions (the reference's ``put`` into ``cache_struct(mode="zeros")``).
 
-    def put(dst, src):
-        if src.shape == dst.shape:
-            return src.to(dst.dtype)
-        dst[tuple(slice(0, d) for d in src.shape)] = src.to(dst.dtype)
+    A leaf whose shape does not grow with the length (an SSM layer's conv
+    tail and state) is taken as it is, with no copy.
+    """
+    shapes = blocks.cache_struct(cfg, batch, cache_len, device="meta")
+
+    def put(want, src):
+        if src.shape == want.shape:
+            return src.to(want.dtype)
+        dst = torch.zeros(want.shape, dtype=want.dtype, device=src.device)
+        dst[tuple(slice(0, d) for d in src.shape)] = src.to(want.dtype)
         return dst
 
-    return tree_map(put, big, cache)
+    return tree_map(put, shapes, cache)
 
 
 @torch.no_grad()

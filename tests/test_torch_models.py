@@ -77,7 +77,7 @@ def test_config_copy_counts_every_reference_arch(arch):
 
 def test_unported_arch_raises():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("mamba2-130m")
+        get_config("jamba-v0.1-52b")
     with pytest.raises(ValueError):
         get_config("no-such-arch")
 
