@@ -6,12 +6,17 @@
 Needs one CUDA card (Hopper: the kernels are built for sm_90a). It builds the
 port's kernels (flash attention, blockwise int8 quantise / dequantise, the
 SSD chunked scan) from the sources in this checkout into ``build/``, one nvcc
-per source, and holds each kernel against its plain PyTorch version on the
-card. Then it drives the port's main paths with seeded random weights:
+per kernel package, and holds each kernel against its plain PyTorch version
+on the card. Flash attention has two kernels, chosen by dtype and head dim
+(``ops.variant``): ``sm90`` on the tensor cores for bf16 at D 64 and 128,
+``simt`` on the CUDA cores for float32 and for bf16 at D 32; each case runs
+the one the table names. Then it drives the port's main paths with seeded
+random weights:
 
 * serving llama3-8b, full width and depth, bf16
-  (``repro_torch.launch.serve``): prefill through the flash-attention
-  kernel, then decode;
+  (``repro_torch.launch.serve``): prefill through the ``sm90``
+  flash-attention kernel (every launch of the wave), then decode; decode
+  against forward in float32 through the ``simt`` kernel;
 * serving mamba2-130m, full width and depth, bf16, 8 x 4096 + 32: prefill
   through the SSD-scan kernel (one launch per layer), then the recurrent
   decode; decode against forward at full width in float32, and a float32
@@ -60,8 +65,9 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
 
 # Kernel vs plain tolerances. f32: the same arithmetic in another summation
-# order. bf16: the plain version rounds the softmax weights to bf16 before
-# P.V, the kernel keeps them in f32 (the reference tests' bf16 tolerance).
+# order. bf16: the plain version rounds the normalised softmax weights to
+# bf16 before P.V, the sm90 kernel the unnormalised ones, the simt kernel
+# none (the reference tests' bf16 tolerance).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2.5e-2}
 # Prefill last-token logits, kernel vs plain, bf16 through 32 layers: every
 # layer's attention output differs by ~one bf16 rounding (eps 2^-8) and the
@@ -99,7 +105,11 @@ SSD_CASES = [
 MAIN_SSD = (SSM_REQUESTS, SSM_PROMPT_LEN, 24, 64, 1, 128, 256, torch.bfloat16)
 
 # (b, s, t, h, kh, d, causal, dtype): the shapes of tests/test_kernels.py
-# FA_CASES, two ragged cases, and the main-path shape last.
+# FA_CASES, two ragged cases, the sm90 kernel's cases of
+# tests/test_torch_kernels.py (one tile at D 64 and 128, ragged causal with
+# an empty second consumer in the last tile, GQA rep 4 at D 64, D 128
+# without the mask), the f32 decode check's two shapes (simt), and the
+# main-path shape last.
 FA_CASES = [
     (2, 128, 128, 4, 2, 64, True, torch.float32),
     (1, 256, 256, 8, 8, 64, True, torch.float32),
@@ -108,8 +118,27 @@ FA_CASES = [
     (1, 64, 64, 4, 4, 32, False, torch.bfloat16),
     (2, 200, 200, 8, 2, 128, True, torch.bfloat16),
     (1, 77, 77, 4, 4, 64, False, torch.float32),
+    (1, 128, 128, 2, 2, 64, False, torch.bfloat16),
+    (1, 128, 128, 2, 2, 128, False, torch.bfloat16),
+    (1, 1000, 1000, 32, 8, 128, True, torch.bfloat16),
+    (2, 384, 384, 16, 4, 64, True, torch.bfloat16),
+    (2, 300, 300, 8, 2, 128, False, torch.bfloat16),
+    (2, 17, 17, 32, 8, 128, True, torch.float32),
+    (2, 16, 16, 32, 8, 128, True, torch.float32),
 ]
 MAIN_FA = (REQUESTS, PROMPT_LEN, PROMPT_LEN, 32, 8, 128, True, torch.bfloat16)
+# The simt kernel is timed at the main path's shape in float32 (serving in
+# float32 takes it at any head dim).
+MAIN_FA_F32 = MAIN_FA[:7] + (torch.float32,)
+# The sm90 kernel against SDPA beside the main shape: without the mask, and
+# at 4x the sequence (4x the kv tiles per q tile, so that each q tile's
+# first and last steps weigh a quarter as much), to tell the per-q-tile
+# cost from the rate of the inner loop.
+FA_RATE_CASES = [MAIN_FA[:6] + (False, torch.bfloat16),
+                 (2, 4096, 4096, 32, 8, 128, True, torch.bfloat16),
+                 (2, 4096, 4096, 32, 8, 128, False, torch.bfloat16)]
+FA_SRC = "src/repro_torch/kernels/flash_attention/csrc/"
+FA_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:25"
 
 # The training main path: llama3-8b at full width and 4 layers (1.92 B
 # params, ~31 GB of f32 params, grads and two moments), 8 timed steps of
@@ -151,18 +180,31 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def time_ms(fn, reps: int = 12, warmup: int = 2) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()``."""
+def time_ms(fn, reps: int = 12, warmup: int = 3, sample_ms: float = 2.0) -> float:
+    """Time of one ``fn()`` on the card: the median over ``reps`` samples of
+    CUDA events around back-to-back calls (as many as fill ~``sample_ms``,
+    at most 20), divided by their count. Back to back, the host's time to
+    enqueue a call overlaps the card's work on the one before, as on a
+    serving path; one call between two events would count it as device
+    time."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    inner = max(1, min(20, int(sample_ms / max(start.elapsed_time(end), 1e-3))))
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -253,52 +295,87 @@ def phase_build(build_mod):
         log = build_mod.log_path(name)
         if log.exists():
             ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
-                           if "registers" in ln or "spill" in ln]
+                           if "registers" in ln or "spill" in ln or "Performance Loss" in ln]
     emit({"phase": "build", "seconds": round(secs, 2),
           "libs": {k: str(v.relative_to(ROOT)) for k, v in libs.items()}, "ptxas": ptxas})
 
 
+def sdpa_call(q, k, v, causal):
+    """scaled_dot_product_attention on the same inputs, GQA expanded to
+    (B, H, S, D) outside the timed call."""
+    rep = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qt, kt, vt, is_causal=causal)
+
+
 def phase_kernel(fa_ops, fa_ref):
+    """Every case on the kernel the variant table names, against the plain
+    version; then each kernel's times at its main shape (sm90: MAIN_FA,
+    simt: MAIN_FA_F32)."""
     rows = []
-    for i, case in enumerate(FA_CASES + [MAIN_FA]):
+    for i, case in enumerate(FA_CASES + [MAIN_FA, MAIN_FA_F32]):
         b, s, t, h, kh, d, causal, dt = case
+        kind = fa_ops.variant(dt, d)
         q, k, v = fa_inputs(case, seed=100 + i)
+        fa_ops.LAUNCHES_BY_VARIANT.update(sm90=0, simt=0)
         got = fa_ops.flash_attention(q, k, v, causal=causal)
+        launched = dict(fa_ops.LAUNCHES_BY_VARIANT)
         torch.cuda.synchronize()
+        check(launched == {"sm90": int(kind == "sm90"), "simt": int(kind == "simt")},
+              f"{case} launched {launched}, want one {kind}")
         want = fa_ref.attention_reference(q, k, v, causal=causal)
         check(got.dtype == dt and got.shape == q.shape, f"bad output {got.dtype} {tuple(got.shape)}")
         err = (got.float() - want.float()).abs()
         tol = TOL[dt]
         ok = bool((err <= tol + tol * want.float().abs()).all())
         rows.append({"shape": [b, s, t, h, kh, d], "causal": causal, "dtype": str(dt).split(".")[1],
-                     "max_abs_err": float(err.max()), "tol": tol, "ok": ok})
+                     "variant": kind, "max_abs_err": float(err.max()), "tol": tol, "ok": ok})
         check(ok, f"flash_attention disagrees with its plain version at {rows[-1]}")
+        del q, k, v, got, want, err
     emit({"phase": "kernel_vs_plain", "cases": rows})
 
-    q, k, v = fa_inputs(MAIN_FA, seed=7)
-    kernel_ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True))
-    plain_ms = time_ms(lambda: fa_ref.attention_reference(q, k, v, causal=True))
-    rep = q.shape[2] // k.shape[2]
-    qt = q.transpose(1, 2).contiguous()
-    kt = k.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
-    vt = v.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
-    bound_s, bound_by, flops, nbytes = fa_bound(MAIN_FA)
-    main = {"phase": "kernel_timing", "shape": list(MAIN_FA[:6]), "dtype": "bfloat16",
-            "causal": True, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+    timings = {}
+    for case, row in ((MAIN_FA, rows[-2]), (MAIN_FA_F32, rows[-1])):
+        q, k, v = fa_inputs(case, seed=7)
+        kernel_ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True))
+        plain_ms = time_ms(lambda: fa_ref.attention_reference(q, k, v, causal=True))
+        library_ms = time_ms(sdpa_call(q, k, v, True))
+        del q, k, v
+        bound_s, bound_by, flops, nbytes = fa_bound(case)
+        kind = row["variant"]
+        timings[kind] = {
+            "phase": "kernel_timing", "variant": kind, "shape": list(case[:6]),
+            "dtype": row["dtype"], "causal": True, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library": "scaled_dot_product_attention (GQA expanded)",
-            "bound_us": bound_s * 1e6, "bound_by": bound_by, "gflop": flops / 1e9,
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by, "gflop": flops / 1e9,
             "mbytes": nbytes / 1e6, "kernel_tflops": flops / (kernel_ms * 1e-3) / 1e12,
-            "roofline_share": bound_s * 1e3 / kernel_ms,
-            "max_abs_err": rows[-1]["max_abs_err"]}
-    emit(main)
-    return main
+            "roofline_share": bound_s * 1e3 / kernel_ms, "vs_library": library_ms / kernel_ms,
+            "max_abs_err": row["max_abs_err"]}
+        emit(timings[kind])
+
+    rates = []
+    for i, case in enumerate(FA_RATE_CASES):
+        causal = case[6]
+        q, k, v = fa_inputs(case, seed=300 + i)
+        kernel_ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=causal))
+        library_ms = time_ms(sdpa_call(q, k, v, causal))
+        del q, k, v
+        flops = fa_bound(case)[2]
+        rates.append({"shape": list(case[:6]), "causal": causal, "kernel_ms": kernel_ms,
+                      "library_ms": library_ms, "kernel_tflops": flops / kernel_ms / 1e9,
+                      "library_tflops": flops / library_ms / 1e9})
+    emit({"phase": "kernel_rates", "variant": "sm90", "dtype": "bfloat16",
+          "library": "scaled_dot_product_attention (GQA expanded)", "cases": rates})
+    return timings
 
 
-def phase_serve(ops, serve_cli, engine, arch, requests, prompt_len, gen, kernel):
+def phase_serve(ops, serve_cli, engine, arch, requests, prompt_len, gen, kernel, variant=None):
     """One wave through ``repro_torch.launch.serve.main`` at full size, the
-    kernel's launches counted in that run alone; then a warm wave, and the
+    kernel's launches counted in that run alone (and, where the kernel has
+    variants, every launch on ``variant``); then a warm wave, and the
     prefill logits against an all-plain prefill."""
     from repro_torch.configs import get_config
 
@@ -306,8 +383,11 @@ def phase_serve(ops, serve_cli, engine, arch, requests, prompt_len, gen, kernel)
     argv = ["--arch", arch, "--requests", str(requests), "--prompt-len", str(prompt_len),
             "--gen", str(gen), "--seed", str(SEED), "--device", "cuda"]
     ops.LAUNCHES = 0
+    if variant:
+        ops.LAUNCHES_BY_VARIANT.update({k: 0 for k in ops.LAUNCHES_BY_VARIANT})
     res = serve_cli.main(argv)                  # the main path, counted
     launches = ops.LAUNCHES
+    by_variant = dict(ops.LAUNCHES_BY_VARIANT) if variant else None
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cfg, params, prompts = res["cfg"], res["params"], res["prompts"]
     check(cfg == get_config(arch), "serve did not run the full-size config")
@@ -318,6 +398,9 @@ def phase_serve(ops, serve_cli, engine, arch, requests, prompt_len, gen, kernel)
         check(bool(torch.isfinite(res[key].float()).all()), f"non-finite {key}")
     check(launches == cfg.n_layers,
           f"{kernel} launched {launches} times in the serve run, want {cfg.n_layers}")
+    if variant:
+        want = {k: cfg.n_layers if k == variant else 0 for k in by_variant}
+        check(by_variant == want, f"{kernel} launches by variant {by_variant}, want {want}")
 
     # Warm wave: steady-state times (cuBLAS and allocator already warm).
     warm = serve_cli.serve_wave(params, cfg, prompts, gen)
@@ -348,6 +431,7 @@ def phase_serve(ops, serve_cli, engine, arch, requests, prompt_len, gen, kernel)
     out = {"phase": "serve", "arch": arch, "n_params": cfg.n_params(), "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "requests": requests, "prompt_len": prompt_len, "gen": gen,
            "dtype": cfg.compute_dtype, f"{kernel}_launches": launches,
+           f"{kernel}_launches_by_variant": by_variant,
            "first_prefill_ms": res["prefill_s"] * 1e3, "prefill_ms": warm["prefill_s"] * 1e3,
            "prefill_tok_s": requests * prompt_len / warm["prefill_s"],
            "decode_ms_per_step": warm["decode_s"] / (gen - 1) * 1e3,
@@ -361,10 +445,11 @@ def phase_serve(ops, serve_cli, engine, arch, requests, prompt_len, gen, kernel)
     return launches, out
 
 
-def phase_decode_check(engine, model_mod, ops, arch):
+def phase_decode_check(engine, model_mod, ops, arch, variant=None):
     """Decode position s-1 after prefilling s-1 tokens == forward over s
     tokens (tests/test_models.py), full width, float32, 2 layers; forward and
-    prefill go through the kernel."""
+    prefill go through the kernel (where it has variants, all on
+    ``variant``). Returns the kernel's launches in this check."""
     from repro_torch.configs import get_config
 
     cfg = dataclasses.replace(get_config(arch), n_layers=2, compute_dtype="float32")
@@ -373,6 +458,8 @@ def phase_decode_check(engine, model_mod, ops, arch):
     g = torch.Generator(device="cuda").manual_seed(5)
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device="cuda")
     before = ops.LAUNCHES
+    if variant:
+        ops.LAUNCHES_BY_VARIANT.update({k: 0 for k in ops.LAUNCHES_BY_VARIANT})
     with torch.inference_mode():
         full, _, _, _ = model_mod.forward(params, cfg, {"tokens": tokens}, mode="train")
         _, cache = engine.prefill_fn(params, cfg, {"tokens": tokens[:, :s - 1]})
@@ -380,14 +467,19 @@ def phase_decode_check(engine, model_mod, ops, arch):
         pos = torch.full((b,), s - 1, dtype=torch.long, device="cuda")
         dec, _ = engine.decode_fn(params, cfg, tokens[:, s - 1], cache, pos)
     launches = ops.LAUNCHES - before
+    by_variant = dict(ops.LAUNCHES_BY_VARIANT) if variant else None
     want = full[:, s - 1]
     err = float((dec - want).abs().max())
     ok = bool(((dec - want).abs() <= DECODE_TOL + DECODE_TOL * want.abs()).all())
     emit({"phase": "decode_matches_forward", "arch": arch, "n_layers": 2,
           "d_model": cfg.d_model, "dtype": "float32", "kernel_launches": launches,
+          "kernel_launches_by_variant": by_variant,
           "max_abs_err": err, "tol": DECODE_TOL, "ok": ok})
     check(launches == 2 * cfg.n_layers, f"{launches} kernel launches in forward + prefill")
+    if variant:
+        check(by_variant[variant] == launches, f"launches by variant {by_variant}, want {variant}")
     check(ok, f"decode vs forward: max abs err {err}")
+    return launches
 
 
 def phase_f32_prefill_check(engine, model_mod, ops, arch):
@@ -807,10 +899,11 @@ def main() -> int:
     phase_device()
     phase_build(_build)
     timing = phase_kernel(fa_ops, fa_ref)
-    launches, _ = phase_serve(fa_ops, serve_cli, engine, ARCH, REQUESTS, PROMPT_LEN, GEN,
-                              "fa")
     torch.cuda.empty_cache()
-    phase_decode_check(engine, model_mod, fa_ops, ARCH)
+    launches, _ = phase_serve(fa_ops, serve_cli, engine, ARCH, REQUESTS, PROMPT_LEN, GEN,
+                              "fa", variant="sm90")
+    torch.cuda.empty_cache()
+    simt_launches = phase_decode_check(engine, model_mod, fa_ops, ARCH, variant="simt")
     torch.cuda.empty_cache()
     ssd_timing = phase_ssd_kernel(ssd_ops, ssd_ref)
     torch.cuda.empty_cache()
@@ -827,15 +920,18 @@ def main() -> int:
     del state
     torch.cuda.empty_cache()
     phase_worker()
-    bound_s, bound_by, _, _ = fa_bound(MAIN_FA)
-    kernels = [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:25",
-        "launches": launches, "max_abs_err": timing["max_abs_err"],
-        "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": bound_s * 1e3, "bound_by": bound_by, "library_ms": timing["library_ms"],
-        "kernel_ms": timing["kernel_ms"], "bound_us": bound_s * 1e6}]
+    kernels = []
+    for name, kind, src, count in (("flash_attention_fwd", "sm90", "flash_attention_sm90.cu",
+                                    launches),
+                                   ("flash_attention_fwd_simt", "simt", "flash_attention.cu",
+                                    simt_launches)):
+        t = timing[kind]
+        kernels.append({
+            "name": name, "route": "cuda", "source": FA_SRC + src, "replaces": FA_REPLACES,
+            "launches": count, "max_abs_err": t["max_abs_err"], "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "roofline_share": t["roofline_share"],
+            "dtype": t["dtype"]})
     for name, line, key, count in (("quantize_blockwise", 18, "quantize", "quant_launches"),
                                    ("dequantize_blockwise", 29, "dequantize", "dequant_launches")):
         t = quant[key]

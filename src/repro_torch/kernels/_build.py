@@ -1,12 +1,14 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Each kernel package keeps its sources under ``csrc/*.cu``. ``nvcc`` compiles
-them for Hopper (``sm_90a``) into a shared library with a plain C interface,
-under ``build/`` at the repository root (listed in ``.gitignore``). The file
-name carries a hash of the sources and flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is. The wrapper passes every pointer and
-the stream as ``ctypes.c_void_p``; each C entry point returns
-``cudaGetLastError()`` after its launch, and the wrapper raises on nonzero.
+Each kernel package keeps its sources under ``csrc/*.cu`` and the headers
+they include under ``csrc/*.cuh``. ``nvcc`` compiles the sources for Hopper
+(``sm_90a``) into a shared library with a plain C interface, under
+``build/`` at the repository root (listed in ``.gitignore``). The file name
+carries a hash of the sources, the headers and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is. The
+wrapper passes every pointer and the stream as ``ctypes.c_void_p``; each C
+entry point returns ``cudaGetLastError()`` after its launch, and the wrapper
+raises on nonzero.
 
 Nothing here runs at import time: the build starts on the first launch on a
 CUDA tensor, or when :func:`build` is called (``chip_smoke.py`` does so to
@@ -58,9 +60,14 @@ def nvcc() -> str:
     raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def headers(name: str) -> list[Path]:
+    """The kernel's headers: hashed into the library's name, never passed to nvcc."""
+    return sorted((KERNELS_DIR / name / "csrc").glob("*.cuh"))
+
+
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources(name):
+    for src in sources(name) + headers(name):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

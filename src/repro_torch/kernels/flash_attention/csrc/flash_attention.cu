@@ -1,4 +1,7 @@
-// Flash-attention forward for NVIDIA Hopper (sm_90a), plain C interface.
+// Flash-attention forward for NVIDIA Hopper (sm_90a) on the CUDA cores, plain
+// C interface: the "simt" variant, for float32 at head dims 32, 64, 128 and
+// bf16 at D 32. bf16 at D 64 and 128 goes to the tensor-core kernel in
+// flash_attention_sm90.cu; fa_fwd below holds the two apart.
 //
 // Replaces: the Pallas TPU kernel `_fa_kernel`, launched by
 // `flash_attention_bhsd` (src/repro/kernels/flash_attention/flash_attention.py),
@@ -8,23 +11,18 @@
 // aligned) to NEG_INF = -1e30, float32 running max, sum and accumulator,
 // denominator clamped at 1e-20, output in the input dtype.
 //
-// Bound on an H100 SXM at the serving main path (llama3-8b prefill:
-// B=8, H=32, KH=8, S=T=1024, D=128, bf16, causal):
-//   operations: 2 products x 2*B*H*D * S(S+1)/2 = 68.8 GFLOP; at the bf16
-//               tensor-core peak of 989 TFLOP/s that is ~70 us;
-//   bytes:      q + o + k + v once = 168 MB; at 3.35 TB/s that is ~50 us.
-// So the kernel is bound by operations, ~70 us per launch, 32 launches per
-// prefill wave.
+// Bound on an H100 SXM for float32 at the serving shape (B=8, H=32, KH=8,
+// S=T=1024, D=128, causal): 68.8 GFLOP of the two products on the causal
+// half; float32 has no tensor-core path here, so at the 67 TFLOP/s of the
+// CUDA cores that is ~1.0 ms; 336 MB of q, k, v, o at 3.35 TB/s is ~0.1 ms.
+// So it is bound by operations.
 //
 // What this design does about that bound: it is the simple, correct first
-// version. Both products run as float32 FMAs on the CUDA cores (67 TFLOP/s
-// peak, so ~1 ms is the floor of this design, ~15x the tensor-core bound),
-// from register micro-tiles over float32 tiles in shared memory. Causal
-// blocks stop at the diagonal tile, which halves the work as the bound
-// assumes, and the heaviest q tiles are scheduled first. K/V tiles are read
-// once per q tile (from L2 for the most part); bytes are not the limit.
-// Reaching the tensor-core bound needs wgmma on bf16 tiles brought in by TMA
-// with a producer/consumer pipeline: later work.
+// version. Both products run as float32 FMAs on the CUDA cores, from
+// register micro-tiles over float32 tiles in shared memory. Causal blocks
+// stop at the diagonal tile, which halves the work as the bound assumes, and
+// the heaviest q tiles are scheduled first. K/V tiles are read once per q
+// tile (from L2 for the most part); bytes are not the limit.
 //
 // Layout: one thread block per (q tile of 64 rows, head, batch), 128
 // threads. A loop over 64-row kv tiles takes the place of the TPU grid's
@@ -254,18 +252,35 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 using repro_fa::launch;
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements, for the
-// (B, S, H, D) layout (the D stride must be 1). Returns a cudaError_t.
+// flash_attention_sm90.cu: bf16, D 64 and 128, on the tensor cores.
+extern "C" int fa_fwd_sm90(const void* q, const void* k, const void* v, void* o,
+                           int B, int S, int T, int H, int KH, int D,
+                           long long sqb, long long sqs, long long sqh,
+                           long long skb, long long sks, long long skh,
+                           long long svb, long long svs, long long svh,
+                           long long sob, long long sos, long long soh,
+                           int causal, void* stream);
+
+// dtype: 0 = float32, 1 = bfloat16. variant: 0 = "simt" (this file), 1 =
+// "sm90" (tensor cores), and it must be the one the wrapper's table names:
+// sm90 for bf16 at D 64 and 128, simt otherwise. Strides are in elements,
+// for the (B, S, H, D) layout (the D stride must be 1). Returns a cudaError_t.
 extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
-                      int dtype, int device, int B, int S, int T, int H, int KH, int D,
+                      int dtype, int variant, int device,
+                      int B, int S, int T, int H, int KH, int D,
                       long long sqb, long long sqs, long long sqh,
                       long long skb, long long sks, long long skh,
                       long long svb, long long svs, long long svh,
                       long long sob, long long sos, long long soh,
                       int causal, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || KH <= 0 || H % KH != 0) return cudaErrorInvalidValue;
+  const bool tensor_cores = dtype == 1 && (D == 64 || D == 128);
+  if (variant != (tensor_cores ? 1 : 0)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  if (tensor_cores)
+    return fa_fwd_sm90(q, k, v, o, B, S, T, H, KH, D, sqb, sqs, sqh, skb, sks, skh,
+                       svb, svs, svh, sob, sos, soh, causal, stream);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FA_LAUNCH(TYPE, DIM)                                                          \
   return launch<TYPE, DIM>(q, k, v, o, B, S, T, H, KH, sqb, sqs, sqh, skb, sks, skh, \
@@ -276,8 +291,6 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
     if (D == 128) FA_LAUNCH(float, 128);
   } else if (dtype == 1) {
     if (D == 32) FA_LAUNCH(__nv_bfloat16, 32);
-    if (D == 64) FA_LAUNCH(__nv_bfloat16, 64);
-    if (D == 128) FA_LAUNCH(__nv_bfloat16, 128);
   }
 #undef FA_LAUNCH
   return cudaErrorInvalidValue;

@@ -3,12 +3,20 @@
 Counterpart of ``repro.kernels.flash_attention.ops``: same signature and
 model layout, q (B, S, H, D) and k, v (B, T, KH, D). A tensor on the CPU goes
 to the plain version (:func:`ref.attention_reference`); a tensor on a CUDA
-device goes to the hand-written kernel in ``csrc/flash_attention.cu``, or the
-call raises. The kernel reads the (B, S, H, D) strides directly, so there is
-no transpose copy around it.
+device goes to a hand-written kernel, or the call raises. Which kernel is
+fixed by dtype and head dim (:func:`variant`), never by a failure:
+
+* ``"sm90"``: bf16 at D 64 and 128, on the tensor cores (wgmma fed by TMA),
+  ``csrc/flash_attention_sm90.cu``; the serving path;
+* ``"simt"``: float32 at D 32, 64, 128 and bf16 at D 32, float32 products on
+  the CUDA cores, ``csrc/flash_attention.cu``.
+
+Both read the (B, S, H, D) strides directly, so there is no transpose copy
+around them.
 
 ``LAUNCHES`` counts kernel launches (never the CPU path), so that a run can
-show that its main path went through the kernel.
+show that its main path went through the kernel; ``LAUNCHES_BY_VARIANT``
+splits the same count by variant.
 """
 from __future__ import annotations
 
@@ -20,9 +28,12 @@ from .. import _build
 from .ref import attention_reference
 
 LAUNCHES = 0
+LAUNCHES_BY_VARIANT = {"sm90": 0, "simt": 0}
 
 SUPPORTED_D = (32, 64, 128)
+SM90_D = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANT_CODE = {"simt": 0, "sm90": 1}
 _C = ctypes.c_int
 _L = ctypes.c_longlong
 _P = ctypes.c_void_p
@@ -33,7 +44,7 @@ def _kernel():
     fn = lib.fa_fwd
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [_P, _P, _P, _P, _C, _C,                  # q k v o dtype device
+        fn.argtypes = [_P, _P, _P, _P, _C, _C, _C,              # q k v o dtype variant device
                        _C, _C, _C, _C, _C, _C,                  # B S T H KH D
                        _L, _L, _L, _L, _L, _L,                  # q, k strides
                        _L, _L, _L, _L, _L, _L,                  # v, o strides
@@ -57,6 +68,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"q, k, v on different devices: {q.device}, {k.device}, {v.device}")
 
 
+def variant(dtype: torch.dtype, d: int) -> str:
+    """The kernel that takes (dtype, head dim) on the card."""
+    return "sm90" if dtype == torch.bfloat16 and d in SM90_D else "simt"
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q: (B, S, H, D); k, v: (B, T, KH, D) -> (B, S, H, D), in q's dtype."""
@@ -74,16 +90,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned for vector loads")
+            raise ValueError(f"{name} must be 16-byte aligned for vector loads and TMA")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise NotImplementedError("the flash-attention kernel has no backward yet")
+    kind = variant(q.dtype, d)
     out = torch.empty_like(q)
     rc = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   _DTYPE_CODE[q.dtype], q.device.index or 0,
+                   _DTYPE_CODE[q.dtype], _VARIANT_CODE[kind], q.device.index or 0,
                    b, s, t, h, kh, d,
                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
                    int(causal), torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"flash_attention {kind} kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    LAUNCHES_BY_VARIANT[kind] += 1
     return out

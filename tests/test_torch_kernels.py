@@ -27,8 +27,9 @@ FA_CASES = [
 CASE_IDS = [f"s{c[1]}h{c[3]}kh{c[4]}d{c[5]}c{int(c[6])}{c[7]}" for c in FA_CASES]
 
 # f32: both sides compute in float32, in another summation order.
-# bf16: the oracles round the softmax weights to bf16 before P.V, the kernels
-# keep them in float32 (the tolerance of tests/test_kernels.py).
+# bf16: the oracles round the normalised softmax weights to bf16 before P.V,
+# the sm90 kernel the unnormalised ones and the simt kernel none (the
+# tolerance of tests/test_kernels.py).
 TOL = {"float32": 5e-5, "bfloat16": 2.5e-2}
 
 
@@ -108,9 +109,36 @@ def test_wrapper_rejects_bad_inputs(bad):
         ops.flash_attention(q, k, v)
 
 
+# The kernel each (dtype, head dim) takes on the card: the tensor-core kernel
+# for bf16 at D 64 and 128, the CUDA-core kernel for the rest.
+VARIANT_TABLE = [
+    ("float32", 32, "simt"), ("float32", 64, "simt"), ("float32", 128, "simt"),
+    ("bfloat16", 32, "simt"), ("bfloat16", 64, "sm90"), ("bfloat16", 128, "sm90"),
+]
+
+
+@pytest.mark.parametrize("name,d,want", VARIANT_TABLE)
+def test_variant_table(name, d, want):
+    assert ops.variant(getattr(torch, name), d) == want
+
+
+def test_variant_table_covers_every_supported_input():
+    assert sorted((n, d) for n, d, _ in VARIANT_TABLE) == sorted(
+        (str(t).split(".")[1], d) for t in ops._DTYPE_CODE for d in ops.SUPPORTED_D)
+    assert set(ops.LAUNCHES_BY_VARIANT) == {"sm90", "simt"} == set(ops._VARIANT_CODE)
+
+
+def test_cpu_wrapper_counts_no_variant_launch():
+    before = dict(ops.LAUNCHES_BY_VARIANT)
+    q, k, v = _torch_inputs(_numpy_inputs((1, 16, 2, 64), (1, 16, 2, 64), seed=4), "bfloat16")
+    ops.flash_attention(q, k, v, causal=True)
+    assert ops.LAUNCHES_BY_VARIANT == before
+
+
 def test_build_names_libraries_by_source_and_needs_nvcc():
     srcs = _build.sources("flash_attention")
-    assert [p.name for p in srcs] == ["flash_attention.cu"]
+    assert [p.name for p in srcs] == ["flash_attention.cu", "flash_attention_sm90.cu"]
+    assert [p.name for p in _build.headers("flash_attention")] == ["hopper.cuh"]
     lib = _build.library_path("flash_attention")
     assert lib.parent == _build.BUILD_DIR and lib == _build.library_path("flash_attention")
     try:
@@ -121,8 +149,22 @@ def test_build_names_libraries_by_source_and_needs_nvcc():
                 _build.build(["flash_attention"])
 
 
+def test_build_hashes_headers_but_compiles_only_sources(tmp_path, monkeypatch):
+    csrc = tmp_path / "k" / "csrc"
+    csrc.mkdir(parents=True)
+    (csrc / "k.cu").write_text('#include "k.cuh"\n')
+    header = csrc / "k.cuh"
+    header.write_text("// one\n")
+    monkeypatch.setattr(_build, "KERNELS_DIR", tmp_path)
+    assert [p.name for p in _build.sources("k")] == ["k.cu"]
+    first = _build.library_path("k")
+    assert first == _build.library_path("k")
+    header.write_text("// two\n")
+    assert _build.library_path("k") != first
+
+
 # --------------------------------------------------------------------------- #
-# The CUDA kernel vs its plain version (host with a card)
+# The CUDA kernels vs their plain version (host with a card)
 # --------------------------------------------------------------------------- #
 @pytest.fixture
 def cuda_device():
@@ -133,11 +175,19 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# FA_CASES, ragged cases the reference cannot take, and the serving shape.
+# FA_CASES, ragged cases the reference cannot take, the serving shape, and
+# for the tensor-core kernel: one q and one kv tile at D 64 and 128, a ragged
+# causal case (S not a multiple of 128, so the last tile's second consumer
+# holds no row), GQA with rep 4 at D 64, and D 128 without the mask.
 CARD_CASES = [c[:8] for c in FA_CASES] + [
     (2, 200, 200, 8, 2, 128, True, "bfloat16"),
     (1, 77, 77, 4, 4, 64, False, "float32"),
     (8, 1024, 1024, 32, 8, 128, True, "bfloat16"),
+    (1, 128, 128, 2, 2, 64, False, "bfloat16"),
+    (1, 128, 128, 2, 2, 128, False, "bfloat16"),
+    (1, 1000, 1000, 32, 8, 128, True, "bfloat16"),
+    (2, 384, 384, 16, 4, 64, True, "bfloat16"),
+    (2, 300, 300, 8, 2, 128, False, "bfloat16"),
 ]
 
 
@@ -148,10 +198,13 @@ def test_cuda_kernel_vs_plain(case, cuda_device):
     tol = {"float32": 1e-4, "bfloat16": 2.5e-2}[name]
     arrs = _numpy_inputs((b, s, h, d), (b, t, kh, d), seed=s + d)
     q, k, v = _torch_inputs(arrs, name, cuda_device)
-    before = ops.LAUNCHES
+    before, by_variant = ops.LAUNCHES, dict(ops.LAUNCHES_BY_VARIANT)
     got = ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert ops.LAUNCHES == before + 1
+    kind = ops.variant(q.dtype, d)
+    by_variant[kind] += 1
+    assert ops.LAUNCHES_BY_VARIANT == by_variant, f"{case} did not run {kind}"
     want = ref.attention_reference(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
