@@ -18,9 +18,11 @@ random weights:
   flash-attention kernel (every launch of the wave), then decode; decode
   against forward in float32 through the ``simt`` kernel;
 * serving mamba2-130m, full width and depth, bf16, 8 x 4096 + 32: prefill
-  through the SSD-scan kernel (one launch per layer), then the recurrent
+  through the SSD-scan kernel (one launch per layer, every one on the
+  ``sm90`` kernel: three passes on the tensor cores), then the recurrent
   decode; decode against forward at full width in float32, and a float32
-  full-depth prefill through the kernel against the plain scan;
+  full-depth prefill through the kernel against the plain scan, both on
+  the ``simt`` kernel (CUDA cores);
 * one training rank, 4 layers (an Adam state of all 32 does not fit one
   card): ``make_train_step`` for 8 timed steps of 4 x 1024 tokens, then a
   TCE checkpoint of the trained params through ``DiskStore`` with the
@@ -44,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -84,7 +87,7 @@ F32_LOGITS_REL_TOL = 1e-3
 # The SSM serving path: mamba2-130m, one wave of 8 requests x 4096-token
 # prompts (16 chunks of 256), 32 generated tokens, full depth (24 layers).
 SSM_ARCH, SSM_REQUESTS, SSM_PROMPT_LEN, SSM_GEN = "mamba2-130m", 8, 4096, 32
-SSD_SRC = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+SSD_SRC = "src/repro_torch/kernels/ssd_scan/csrc/"
 SSD_REPLACES = "src/repro/kernels/ssd_scan/ssd_scan.py:24"
 # SSD kernel vs plain (tests/test_kernels.py): y within this share of max |y|,
 # the final state at rtol = atol (f32: the same float32 arithmetic in another
@@ -92,8 +95,12 @@ SSD_REPLACES = "src/repro/kernels/ssd_scan/ssd_scan.py:24"
 SSD_Y_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 SSD_STATE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # (b, s, nh, p, g, n, chunk, dtype): tests/test_kernels.py SSD_CASES, the
-# chunks of the decode check's 17-token forward and 16-token prefill, and
-# the main path's shape last (x, B, C as views into the conv output).
+# chunks of the decode check's 17-token forward and 16-token prefill (simt),
+# the sm90 kernel's cases of tests/test_torch_ssd_passes.py (one chunk of 64
+# at n 64 and n 128, chunks of 128 and 256 over several chunks, g 2 with
+# nh 8), then the main path's shape in bf16 (sm90) and float32 (simt); x, B,
+# C are views into one conv output, as the model passes them. Each case runs
+# on the kernel ops.variant names.
 SSD_CASES = [
     (2, 128, 8, 32, 1, 16, 64, torch.float32),
     (1, 256, 4, 16, 2, 8, 32, torch.float32),
@@ -101,8 +108,19 @@ SSD_CASES = [
     (2, 128, 4, 32, 1, 16, 32, torch.bfloat16),
     (2, 16, 24, 64, 1, 128, 16, torch.float32),
     (2, 17, 24, 64, 1, 128, 17, torch.float32),
+    (1, 64, 4, 64, 1, 64, 64, torch.bfloat16),
+    (1, 64, 4, 64, 1, 128, 64, torch.bfloat16),
+    (2, 512, 4, 64, 1, 128, 128, torch.bfloat16),
+    (2, 1024, 4, 64, 1, 128, 256, torch.bfloat16),
+    (2, 512, 8, 64, 2, 64, 128, torch.bfloat16),
 ]
 MAIN_SSD = (SSM_REQUESTS, SSM_PROMPT_LEN, 24, 64, 1, 128, 256, torch.bfloat16)
+MAIN_SSD_F32 = MAIN_SSD[:7] + (torch.float32,)
+# The sm90 kernel and its passes at the main path's token count cut two
+# other ways: 64 chunks in a row (the recurrence of pass 2 four times as
+# long, a quarter of its blocks) and 4 (four times the blocks).
+SSD_RATE_CASES = [(2, 16384) + MAIN_SSD[2:], (32, 1024) + MAIN_SSD[2:]]
+SSD_PASSES = ("chunk_state", "state_pass", "chunk_scan")
 
 # (b, s, t, h, kh, d, causal, dtype): the shapes of tests/test_kernels.py
 # FA_CASES, two ragged cases, the sm90 kernel's cases of
@@ -251,6 +269,13 @@ def kernel_kind(name: str) -> str:
     return next((kind for kind, keys in KERNEL_KINDS if any(k in low for k in keys)), "other")
 
 
+def hand_kernel(name: str):
+    """The short name of one of the port's kernels (``ssd_fwd_chunk_scan``,
+    ``fa_fwd_sm90_kernel``, ...) in a profiler key, else None."""
+    m = re.search(r"(ssd_fwd\w*|fa_fwd\w*)", name)
+    return m.group(1) if m else None
+
+
 def plain_codec(qb_ref, x: torch.Tensor, block: int = QB_BLOCK):
     """The plain version of the codec's round trip, on x's device: zero-pad
     the flat leaf to whole blocks, quantise, dequantise, crop."""
@@ -290,14 +315,25 @@ def phase_build(build_mod):
     t0 = time.perf_counter()
     libs = build_mod.build()
     secs = time.perf_counter() - t0
-    ptxas = {}
+    ptxas, wgmma_notes = {}, {}
     for name in libs:
         log = build_mod.log_path(name)
         if log.exists():
-            ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
+            text = log.read_text().splitlines()
+            ptxas[name] = [ln.strip() for ln in text
                            if "registers" in ln or "spill" in ln or "Performance Loss" in ln]
+            # ptxas's notes on wgmma, counted per code and entry function:
+            # C7511 / C7515 (wgmma serialized), C7519 (warpgroup.arrive injected)
+            notes = {}
+            for ln in text:
+                m = re.search(r"\((C75\d\d)\).*function '([^']+)'", ln)
+                if m:
+                    key = f"{m.group(1)} {m.group(2)}"
+                    notes[key] = notes.get(key, 0) + 1
+            wgmma_notes[name] = notes
     emit({"phase": "build", "seconds": round(secs, 2),
-          "libs": {k: str(v.relative_to(ROOT)) for k, v in libs.items()}, "ptxas": ptxas})
+          "libs": {k: str(v.relative_to(ROOT)) for k, v in libs.items()}, "ptxas": ptxas,
+          "wgmma_notes": wgmma_notes})
 
 
 def sdpa_call(q, k, v, causal):
@@ -414,10 +450,14 @@ def phase_serve(ops, serve_cli, engine, arch, requests, prompt_len, gen, kernel,
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3
     by_kind: dict = {}
+    by_hand_kernel: dict = {}
     for e in prof.key_averages():
         if str(e.device_type).endswith("CUDA"):
             kind = kernel_kind(e.key)
             by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
+            short = hand_kernel(e.key)
+            if short:
+                by_hand_kernel[short] = by_hand_kernel.get(short, 0.0) + e.self_device_time_total / 1e3
     busy_ms = sum(by_kind.values())
 
     # Kernel vs plain through the whole prefill.
@@ -440,6 +480,7 @@ def phase_serve(ops, serve_cli, engine, arch, requests, prompt_len, gen, kernel,
            "logits_rel_tol": LOGITS_REL_TOL, "argmax_agree": agree,
            "warm_tokens_equal": bool(torch.equal(warm["tokens"], toks)),
            "profiled_prefill_ms": profiled_ms, "profiled_kernel_ms_by_kind": by_kind,
+           f"profiled_{kernel}_ms_by_kernel": by_hand_kernel,
            "profiled_kernel_ms": busy_ms, "device_busy_share_of_prefill": busy_ms / profiled_ms}
     emit(out)
     return launches, out
@@ -482,11 +523,12 @@ def phase_decode_check(engine, model_mod, ops, arch, variant=None):
     return launches
 
 
-def phase_f32_prefill_check(engine, model_mod, ops, arch):
+def phase_f32_prefill_check(engine, model_mod, ops, arch, variant):
     """Prefill last-token logits, kernel vs plain, at full width and depth in
-    float32 (2 x 1024 tokens, 4 chunks): where the bf16 serve phase's gap is
-    bf16 roundings carried through every layer, this one is the kernel's own
-    summation order alone."""
+    float32 (2 x 1024 tokens, 4 chunks), every launch on ``variant``: where
+    the bf16 serve phase's gap is bf16 roundings carried through every layer,
+    this one is the kernel's own summation order alone. Returns the kernel's
+    launches."""
     from repro_torch.configs import get_config
 
     cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
@@ -494,18 +536,23 @@ def phase_f32_prefill_check(engine, model_mod, ops, arch):
     g = torch.Generator(device="cuda").manual_seed(6)
     tokens = torch.randint(0, cfg.vocab_size, (2, 1024), generator=g, device="cuda")
     before = ops.LAUNCHES
+    ops.LAUNCHES_BY_VARIANT.update({k: 0 for k in ops.LAUNCHES_BY_VARIANT})
     with torch.inference_mode():
         got, _ = engine.prefill_fn(params, cfg, {"tokens": tokens})
         launches = ops.LAUNCHES - before
+        by_variant = dict(ops.LAUNCHES_BY_VARIANT)
         want, _ = engine.prefill_fn(params, cfg, {"tokens": tokens}, attn_impl="plain")
     diff = float((got - want).abs().max())
     scale = float(want.abs().max())
     emit({"phase": "f32_prefill_kernel_vs_plain", "arch": arch, "n_layers": cfg.n_layers,
           "d_model": cfg.d_model, "tokens": list(tokens.shape), "kernel_launches": launches,
+          "kernel_launches_by_variant": by_variant,
           "logits_max_abs_diff": diff, "logits_scale": scale, "rel_tol": F32_LOGITS_REL_TOL})
     check(launches == cfg.n_layers, f"{launches} kernel launches in the f32 prefill")
+    check(by_variant[variant] == launches, f"launches by variant {by_variant}, want {variant}")
     check(diff <= F32_LOGITS_REL_TOL * scale,
           f"f32 prefill logits kernel vs plain: max |diff| {diff} > {F32_LOGITS_REL_TOL} x {scale}")
+    return launches
 
 
 def ssd_inputs(case, seed):
@@ -540,12 +587,61 @@ def ssd_bound(case):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
 
 
+def ssd_pass_bound(name, case):
+    """Least time (s) for one sm90 pass at ``case``: what the pass must read
+    and write (each once) and its products, at the peak for their type.
+    chunk_state: x, B, dt, A in; the f32 chunk states and cum (b, nh, s) out;
+    (x w)^T B. state_pass: the chunk states and cum_last in, the bf16
+    starting states and the final state out; a multiply-add a value a chunk
+    (float32, CUDA cores). chunk_scan: x, B, C, cum, dt and the starting
+    states in, y out; C.B^T once per group and its product with x on the
+    causal half, and the inter-chunk term."""
+    b, s, nh, p, g, n, chunk, dt = case
+    c = min(chunk, s)
+    l, pairs = s // c, c * (c + 1) // 2
+    elt = torch.tensor([], dtype=dt).element_size()
+    states = b * l * nh * p * n
+    if name == "chunk_state":
+        nbytes = (b * s * nh * p + b * s * g * n) * elt + 4 * (b * s * nh + nh) + 4 * states \
+            + 4 * b * nh * s
+        flops, peak = 2 * states * c, PEAK_BF16_FLOPS
+    elif name == "state_pass":
+        nbytes = 4 * states + 4 * b * nh * l + 2 * states + 4 * b * nh * p * n
+        flops, peak = 2 * states, PEAK_F32_FLOPS
+    else:
+        nbytes = (2 * b * s * nh * p + 2 * b * s * g * n) * elt + 2 * 4 * b * nh * s + 2 * states
+        flops = 2 * b * l * (g * n * pairs + nh * p * pairs + nh * c * p * n)
+        peak = PEAK_BF16_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_S
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def ssd_pass_times(ssd_ops, case, x, dtv, A, B, C):
+    """Each sm90 pass alone at ``case`` (through its wrapper, as ``ssd_scan``
+    calls it), beside its own bound."""
+    c = min(case[6], case[1])
+    states, cum = ssd_ops.chunk_state(x, dtv, A, B, c)
+    h_in, _ = ssd_ops.state_pass(states, cum, c, None)
+    out = {}
+    for name, fn in (("chunk_state", lambda: ssd_ops.chunk_state(x, dtv, A, B, c)),
+                     ("state_pass", lambda: ssd_ops.state_pass(states, cum, c, None)),
+                     ("chunk_scan", lambda: ssd_ops.chunk_scan(x, dtv, B, C, cum, h_in, c))):
+        ms = time_ms(fn)
+        bound_s, bound_by = ssd_pass_bound(name, case)
+        out[name] = {"ms": ms, "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+                     "roofline_share": bound_s * 1e3 / ms}
+    return out
+
+
 def phase_ssd_kernel(ssd_ops, ssd_ref):
-    """The SSD kernel vs its plain version on every listed shape and on the
-    init-state continuation, then its times at the main path's shape."""
+    """Every listed shape on the kernel the variant table names, against the
+    plain version, and the init-state continuation; each sm90 pass against
+    its own plain pass at the main shape; then the times of both kernels at
+    the main shape (sm90 in bf16 with each pass beside its bound, simt in
+    float32), and of the sm90 kernel at two other cuts of the same tokens."""
     rows = []
 
-    def compare(case, got, want, what):
+    def compare(case, got, want, what, kind):
         (y, h), (wy, wh) = got, want
         dt = case[7]
         check(y.dtype == dt and y.shape == wy.shape and h.dtype == torch.float32
@@ -556,17 +652,26 @@ def phase_ssd_kernel(ssd_ops, ssd_ref):
         state_ok = bool(((h - wh).abs() <= stol + stol * wh.abs()).all())
         ok = err / scale < SSD_Y_TOL[dt] and state_ok
         rows.append({"shape": list(case[:7]), "dtype": str(dt).split(".")[1], "what": what,
-                     "max_abs_err": err, "y_scale": scale, "y_tol": SSD_Y_TOL[dt],
-                     "state_max_abs_err": float((h - wh).abs().max()), "state_tol": stol,
-                     "ok": ok})
+                     "variant": kind, "max_abs_err": err, "y_scale": scale,
+                     "y_tol": SSD_Y_TOL[dt], "state_max_abs_err": float((h - wh).abs().max()),
+                     "state_tol": stol, "ok": ok})
         check(ok, f"ssd_scan disagrees with its plain version at {rows[-1]}")
 
-    for i, case in enumerate(SSD_CASES + [MAIN_SSD]):
+    for i, case in enumerate(SSD_CASES + [MAIN_SSD, MAIN_SSD_F32]):
         x, dtv, A, B, C = ssd_inputs(case, seed=200 + i)
+        c = min(case[6], case[1])
+        kind = ssd_ops.variant(case[7], case[3], case[5], c, ssd_ops.tma_aligned(x, B, C))
+        ssd_ops.LAUNCHES_BY_VARIANT.update(sm90=0, simt=0)
         got = ssd_ops.ssd_scan(x, dtv, A, B, C, chunk=case[6])
+        launched = dict(ssd_ops.LAUNCHES_BY_VARIANT)
         torch.cuda.synchronize()
-        compare(case, got, ssd_ref.ssd_reference(x, dtv, A, B, C, chunk=min(case[6], case[1])),
-                "kernel vs plain")
+        check(launched == {"sm90": int(kind == "sm90"), "simt": int(kind == "simt")},
+              f"{case} launched {launched}, want one {kind}")
+        compare(case, got, ssd_ref.ssd_reference(x, dtv, A, B, C, chunk=c), "kernel vs plain",
+                kind)
+        del x, dtv, A, B, C, got
+    check(rows[-2]["variant"] == "sm90" and rows[-1]["variant"] == "simt",
+          "the main shape must run on sm90 in bf16 and on simt in float32")
     # The continuation of tests/test_kernels.py: two halves, the second from
     # the first one's final state, against the whole sequence.
     case = (1, 128, 4, 16, 1, 8, 32, torch.float32)
@@ -577,23 +682,83 @@ def phase_ssd_kernel(ssd_ops, ssd_ref):
                               chunk=32, init_state=h1)
     torch.cuda.synchronize()
     wy, wh = ssd_ref.ssd_reference(x, dtv, A, B, C, chunk=32)
-    compare(case, (y2, h2), (wy[:, half:], wh), "init-state continuation")
+    compare(case, (y2, h2), (wy[:, half:], wh), "init-state continuation", "simt")
     emit({"phase": "ssd_kernel_vs_plain", "cases": rows})
 
-    x, dtv, A, B, C = ssd_inputs(MAIN_SSD, seed=8)
-    chunk = MAIN_SSD[6]
-    kernel_ms = time_ms(lambda: ssd_ops.ssd_scan(x, dtv, A, B, C, chunk=chunk))
-    plain_ms = time_ms(lambda: ssd_ref.ssd_reference(x, dtv, A, B, C, chunk=chunk))
-    bound_s, bound_by, flops, nbytes = ssd_bound(MAIN_SSD)
-    main = {"phase": "ssd_kernel_timing", "shape": list(MAIN_SSD[:7]), "dtype": "bfloat16",
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
-            "library": "none: no single PyTorch call computes the SSD scan",
+    # Each sm90 pass against its own plain pass at the main shape (the
+    # starting states from an init state; pass 3 given the same bf16 states).
+    x, dtv, A, B, C = ssd_inputs(MAIN_SSD, seed=9)
+    c = MAIN_SSD[6]
+    b, s, nh, p, g, n = MAIN_SSD[:6]
+    init = torch.randn(b, nh, p, n, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(10))
+    tol = SSD_STATE_TOL[torch.bfloat16]
+    states, cum = ssd_ops.chunk_state(x, dtv, A, B, c)
+    w_states, w_cum = ssd_ref.chunk_state_reference(x, dtv, A, B, c)
+    h_in, final = ssd_ops.state_pass(w_states, w_cum, c, init)
+    w_h_in, w_final = ssd_ref.state_pass_reference(w_states, w_cum, c, init)
+    h16 = w_h_in.to(torch.bfloat16)
+    y = ssd_ops.chunk_scan(x, dtv, B, C, w_cum, h16, c)
+    wy = ssd_ref.chunk_scan_reference(x, dtv, B, C, w_cum, h16.float(), c)
+    torch.cuda.synchronize()
+
+    def close(got, want, t):
+        return float((got.float() - want).abs().max()), bool(
+            ((got.float() - want).abs() <= t + t * want.abs()).all())
+
+    passes = {}
+    for name, (err, ok), t in (
+            ("chunk_state cum", close(cum, w_cum, SSD_STATE_TOL[torch.float32]),
+             SSD_STATE_TOL[torch.float32]),
+            ("chunk_state states", close(states, w_states, tol), tol),
+            ("state_pass h_in", close(h_in, w_h_in, tol), tol),
+            ("state_pass final", close(final, w_final, SSD_STATE_TOL[torch.float32]),
+             SSD_STATE_TOL[torch.float32])):
+        passes[name] = {"max_abs_err": err, "tol": t, "ok": ok}
+        check(ok, f"sm90 {name} disagrees with its plain pass: {passes[name]}")
+    y_err = float((y.float() - wy.float()).abs().max())
+    y_scale = float(wy.float().abs().max())
+    passes["chunk_scan y"] = {"max_abs_err": y_err, "y_scale": y_scale,
+                              "y_tol": SSD_Y_TOL[torch.bfloat16],
+                              "ok": y_err / y_scale < SSD_Y_TOL[torch.bfloat16]}
+    check(passes["chunk_scan y"]["ok"], f"sm90 chunk_scan disagrees: {passes['chunk_scan y']}")
+    emit({"phase": "ssd_passes_vs_plain", "shape": list(MAIN_SSD[:7]), "passes": passes})
+    del states, cum, w_states, w_cum, h_in, final, w_h_in, w_final, h16, y, wy
+
+    timings = {}
+    for case, row in ((MAIN_SSD, rows[len(SSD_CASES)]), (MAIN_SSD_F32, rows[len(SSD_CASES) + 1])):
+        x, dtv, A, B, C = ssd_inputs(case, seed=8)
+        chunk = case[6]
+        kernel_ms = time_ms(lambda: ssd_ops.ssd_scan(x, dtv, A, B, C, chunk=chunk))
+        plain_ms = time_ms(lambda: ssd_ref.ssd_reference(x, dtv, A, B, C, chunk=chunk))
+        bound_s, bound_by, flops, nbytes = ssd_bound(case)
+        kind = row["variant"]
+        timings[kind] = {
+            "phase": "ssd_kernel_timing", "variant": kind, "shape": list(case[:7]),
+            "dtype": row["dtype"], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": None, "library": "none: no single PyTorch call computes the SSD scan",
             "bound_ms": bound_s * 1e3, "bound_by": bound_by, "gflop": flops / 1e9,
             "mbytes": nbytes / 1e6, "kernel_tflops": flops / (kernel_ms * 1e-3) / 1e12,
-            "roofline_share": bound_s * 1e3 / kernel_ms,
-            "max_abs_err": rows[len(SSD_CASES)]["max_abs_err"]}
-    emit(main)
-    return main
+            "roofline_share": bound_s * 1e3 / kernel_ms, "vs_plain": plain_ms / kernel_ms,
+            "max_abs_err": row["max_abs_err"]}
+        if kind == "sm90":
+            timings[kind]["passes"] = ssd_pass_times(ssd_ops, case, x, dtv, A, B, C)
+        del x, dtv, A, B, C
+        torch.cuda.empty_cache()
+        emit(timings[kind])
+
+    rates = []
+    for i, case in enumerate(SSD_RATE_CASES):
+        x, dtv, A, B, C = ssd_inputs(case, seed=400 + i)
+        kernel_ms = time_ms(lambda: ssd_ops.ssd_scan(x, dtv, A, B, C, chunk=case[6]))
+        bound_s = ssd_bound(case)[0]
+        rates.append({"shape": list(case[:7]), "kernel_ms": kernel_ms,
+                      "bound_ms": bound_s * 1e3, "roofline_share": bound_s * 1e3 / kernel_ms,
+                      "passes": ssd_pass_times(ssd_ops, case, x, dtv, A, B, C)})
+        del x, dtv, A, B, C
+        torch.cuda.empty_cache()
+    emit({"phase": "ssd_rates", "variant": "sm90", "dtype": "bfloat16", "cases": rates})
+    return timings
 
 
 def phase_quant_kernel(qb_ops, qb_ref):
@@ -908,10 +1073,10 @@ def main() -> int:
     ssd_timing = phase_ssd_kernel(ssd_ops, ssd_ref)
     torch.cuda.empty_cache()
     ssd_launches, _ = phase_serve(ssd_ops, serve_cli, engine, SSM_ARCH, SSM_REQUESTS,
-                                  SSM_PROMPT_LEN, SSM_GEN, "ssd")
+                                  SSM_PROMPT_LEN, SSM_GEN, "ssd", variant="sm90")
     torch.cuda.empty_cache()
-    phase_decode_check(engine, model_mod, ssd_ops, SSM_ARCH)
-    phase_f32_prefill_check(engine, model_mod, ssd_ops, SSM_ARCH)
+    ssd_simt_launches = phase_decode_check(engine, model_mod, ssd_ops, SSM_ARCH, variant="simt")
+    ssd_simt_launches += phase_f32_prefill_check(engine, model_mod, ssd_ops, SSM_ARCH, "simt")
     torch.cuda.empty_cache()
     quant = phase_quant_kernel(qb_ops, qb_ref)
     torch.cuda.empty_cache()
@@ -940,12 +1105,15 @@ def main() -> int:
             "launches": ckpt[count], "max_abs_err": quant["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
-    kernels.append({
-        "name": "ssd_scan", "route": "cuda", "source": SSD_SRC, "replaces": SSD_REPLACES,
-        "launches": ssd_launches, "max_abs_err": ssd_timing["max_abs_err"],
-        "ms": ssd_timing["kernel_ms"], "plain_ms": ssd_timing["plain_ms"],
-        "bound_ms": ssd_timing["bound_ms"], "bound_by": ssd_timing["bound_by"],
-        "library_ms": None})
+    for name, kind, src, count in (("ssd_scan", "sm90", "ssd_scan_sm90.cu", ssd_launches),
+                                   ("ssd_scan_simt", "simt", "ssd_scan.cu", ssd_simt_launches)):
+        t = ssd_timing[kind]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SSD_SRC + src, "replaces": SSD_REPLACES,
+            "launches": count, "max_abs_err": t["max_abs_err"], "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "roofline_share": t["roofline_share"], "dtype": t["dtype"],
+            **({"passes": t["passes"]} if "passes" in t else {})})
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 1)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

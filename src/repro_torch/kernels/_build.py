@@ -1,11 +1,14 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 Each kernel package keeps its sources under ``csrc/*.cu`` and the headers
-they include under ``csrc/*.cuh``. ``nvcc`` compiles the sources for Hopper
+they include under ``csrc/*.cuh``; headers shared by several packages (the
+Hopper building blocks, ``hopper.cuh``) live in ``kernels/csrc/`` and reach
+nvcc through ``-I``. ``nvcc`` compiles a package's sources for Hopper
 (``sm_90a``) into a shared library with a plain C interface, under
 ``build/`` at the repository root (listed in ``.gitignore``). The file name
-carries a hash of the sources, the headers and the flags, so an edited
-source or header is rebuilt and an unchanged one is loaded as it is. The
+carries a hash of the sources, the package's headers, every shared header
+and the flags, so an edited source or header is rebuilt and an unchanged one
+is loaded as it is. The
 wrapper passes every pointer and the stream as ``ctypes.c_void_p``; each C
 entry point returns ``cudaGetLastError()`` after its launch, and the wrapper
 raises on nonzero.
@@ -60,9 +63,16 @@ def nvcc() -> str:
     raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def shared_include() -> Path:
+    """The directory of the headers every kernel package may include."""
+    return KERNELS_DIR / "csrc"
+
+
 def headers(name: str) -> list[Path]:
-    """The kernel's headers: hashed into the library's name, never passed to nvcc."""
-    return sorted((KERNELS_DIR / name / "csrc").glob("*.cuh"))
+    """The shared headers, then the kernel's own: hashed into the library's
+    name, never compiled on their own."""
+    return (sorted(shared_include().glob("*.cuh"))
+            + sorted((KERNELS_DIR / name / "csrc").glob("*.cuh")))
 
 
 def library_path(name: str) -> Path:
@@ -90,7 +100,8 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
     for name in todo:
         lib = out[name]
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources(name))]
+        cmd = [compiler, *NVCC_FLAGS, "-I", str(shared_include()), "-o", str(tmp),
+               *map(str, sources(name))]
         log = open(log_path(name), "w")
         running.append((name, lib, tmp, log,
                         subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))

@@ -1,11 +1,15 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tensor loads,
-// named barriers, register reallocation, wgmma descriptors and products. Used by
-// flash_attention_sm90.cu. Every function here is a thin wrapper around one
-// or two PTX instructions; see the PTX ISA sections on mbarrier,
-// cp.async.bulk.tensor, wgmma.mma_async and setmaxnreg.
+// named barriers, register reallocation, wgmma descriptors and products, and
+// on the host the encoding of TMA tensor maps. Shared by the port's Hopper
+// kernels (flash_attention_sm90.cu, ssd_scan_sm90.cu), which include it
+// through the -I of kernels/_build.py. Every device function here is a thin
+// wrapper around one or two PTX instructions; see the PTX ISA sections on
+// mbarrier, cp.async.bulk(.tensor), fence.proxy, wgmma.mma_async and
+// setmaxnreg.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace repro_sm90 {
@@ -73,6 +77,22 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// memory to shared memory at `dst`; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy accesses (wgmma operand reads, TMA writes) of the same bytes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---- named barriers: bar.sync waits, bar.arrive counts without waiting ---
 template <int N> __device__ __forceinline__ void named_sync(int id) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(N) : "memory");
@@ -133,14 +153,16 @@ template <int N> __device__ __forceinline__ void fence_operands(float (&d)[N]) {
 // 16k .. 16k + 15 packed in order, d[8k .. 8k + 7]. In every product below,
 // scale_d = 0 writes D = A B and scale_d = 1 accumulates D += A B.
 
-// D (64 x 128, f32) += A (64 x 16) * B (16 x 128), both bf16 in shared memory, K-major.
+// D (64 x 128, f32) += A (64 x 16) * B (16 x 128), both bf16 in shared
+// memory: K-major by default, MN-major where TA (A) or TB (B) is 1.
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t desc_a,
                                                    uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -150,7 +172,25 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t des
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D (64 x 64, f32) += A (64 x 16) * B (16 x 64), both bf16 in shared memory,
+// K-major by default, MN-major where TA or TB is 1.
+template <int TA = 0, int TB = 0>
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // D (64 x 64, f32) += A (64 x 16, bf16 in registers) * B (16 x 64, bf16 in
@@ -189,6 +229,41 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// ---- host: TMA tensor maps --------------------------------------------------
+// cuTensorMapEncodeTiled from the driver, found at run time so that a
+// library needs no link against libcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 4-D map over a bf16 tensor: dims innermost first (the innermost with
+// unit stride), byte strides of the outer three, boxes of box[0..3] with
+// 128-byte swizzle (box[0] is 64: one 128-byte row). Returns false if the
+// driver refuses it (a stride or address that is not a multiple of 16).
+inline bool make_map_bf16(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[4],
+                          const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4]) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
 }  // namespace repro_sm90

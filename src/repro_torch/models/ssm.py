@@ -1,11 +1,13 @@
 """Mamba-2 (state-space duality) block.
 
 Counterpart of ``repro.models.ssm``. Training and prefill run the chunked SSD
-algorithm: intra-chunk terms are dense (c x c) products, and the inter-chunk
-state is carried by an in-order loop over chunks (the reference's
-``lax.scan``). Decode is the O(1) recurrent step. The hand-written kernel in
-``repro_torch.kernels.ssd_scan`` computes the same scan; :func:`ssd_chunked`
-is its plain version (``kernels/ssd_scan/ref.py``).
+algorithm in three passes (:func:`chunk_state`, :func:`state_pass`,
+:func:`chunk_scan`): each chunk's own state, the inter-chunk state carried
+by an in-order loop over chunks (the reference's ``lax.scan``), then the
+outputs, intra-chunk terms as dense (c x c) products. Decode is the O(1)
+recurrent step. The hand-written kernels in ``repro_torch.kernels.ssd_scan``
+compute the same scan (the ``sm90`` one in the same three passes);
+:func:`ssd_chunked` is their plain version (``kernels/ssd_scan/ref.py``).
 
 ``ssm_forward(..., use_kernel=True)`` sends the scan to the kernel (the
 reference's ``use_pallas``); the model passes it for ``attn_impl="kernel"``,
@@ -53,66 +55,93 @@ def ssm_params(pb: ParamBuilder, cfg: ModelConfig):
 # --------------------------------------------------------------------------- #
 # SSD chunked scan (the kernel's plain version)
 # --------------------------------------------------------------------------- #
-def _segsum(x: torch.Tensor) -> torch.Tensor:
-    """x: (..., c) -> (..., c, c); out[i, j] = sum_{k=j+1..i} x_k, -inf above diag."""
-    c = x.shape[-1]
-    cs = torch.cumsum(x, dim=-1)
-    diff = cs[..., :, None] - cs[..., None, :]
-    mask = torch.ones((c, c), dtype=torch.bool, device=x.device).tril()
-    return torch.where(mask, diff, -torch.inf)
+def chunk_state(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass 1 of the chunked scan: each chunk's own state, from a zero start.
+      x: (b, s, h, p)  dt: (b, s, h)  A: (h,)  B: (b, s, g, n); h = g*rep
+    Returns (states: (b, l, h, p, n) f32, cum: (b, h, s) f32), cum the prefix
+    sum of dt*A within each chunk, l = s // chunk.
+    """
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    l = s // chunk
+    f32 = torch.float32
+    dA = (dt.to(f32) * A.to(f32)).reshape(b, l, chunk, h)                  # (b,l,c,h)
+    cum = torch.cumsum(dA, dim=2)
+    xdt = (x.to(f32) * dt.to(f32)[..., None]).reshape(b, l, chunk, g, rep, p)
+    Bc = B.to(f32).reshape(b, l, chunk, g, n)
+    ds = torch.exp(cum[:, :, -1:, :] - cum).reshape(b, l, chunk, g, rep)
+    S = torch.einsum("bljgn,bljgr,bljgrp->blgrpn", Bc, ds, xdt)            # (b,l,g,r,p,n)
+    return S.reshape(b, l, h, p, n), cum.permute(0, 3, 1, 2).reshape(b, h, s)
+
+
+def state_pass(states: torch.Tensor, cum: torch.Tensor, chunk: int,
+               init_state: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass 2: the inter-chunk recurrence, chunk by chunk in order (the
+    reference's ``lax.scan``), state <- state * exp(cum_last) + states[k].
+      states: (b, l, h, p, n) f32  cum: (b, h, s)  init_state: (b, h, p, n)
+    Returns (h_in: (b, l, h, p, n), the state at each chunk's start, and the
+    final state (b, h, p, n), both f32).
+    """
+    b, l, h, p, n = states.shape
+    f32 = torch.float32
+    decay = torch.exp(cum.reshape(b, h, l, chunk)[..., -1]).transpose(1, 2)  # (b,l,h)
+    if init_state is None:
+        h_cur = torch.zeros((b, h, p, n), dtype=f32, device=states.device)
+    else:
+        h_cur = init_state.to(f32)
+    h_ins = []
+    for i in range(l):
+        h_ins.append(h_cur)
+        h_cur = h_cur * decay[:, i, :, None, None] + states[:, i]
+    return torch.stack(h_ins, dim=1), h_cur
+
+
+def chunk_scan(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+               cum: torch.Tensor, h_in: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Pass 3: the outputs, intra-chunk (dense (c x c) products, masked to
+    j <= i) plus the inter-chunk term from each chunk's starting state.
+      x: (b, s, h, p)  dt: (b, s, h)  B, C: (b, s, g, n)  cum: (b, h, s)
+      h_in: (b, l, h, p, n)
+    Returns y: (b, s, h, p) in x's dtype.
+    """
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    l = s // chunk
+    f32 = torch.float32
+    xdt = (x.to(f32) * dt.to(f32)[..., None]).reshape(b, l, chunk, g, rep, p)
+    Bc = B.to(f32).reshape(b, l, chunk, g, n)
+    Cc = C.to(f32).reshape(b, l, chunk, g, n)
+    cl = cum.reshape(b, h, l, chunk).transpose(1, 2).contiguous()          # (b,l,h,c)
+    # L[i, j] = exp(cum_i - cum_j) on j <= i: -inf above the diagonal first
+    mask = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    L = torch.exp(torch.where(mask, cl[..., :, None] - cl[..., None, :], -torch.inf))
+    L = L.reshape(b, l, g, rep, chunk, chunk)
+    CB = torch.einsum("blign,bljgn->blgij", Cc, Bc)                        # (b,l,g,c,c)
+    M = CB[:, :, :, None] * L                                              # (b,l,g,r,c,c)
+    y_intra = torch.einsum("blgrij,bljgrp->bligrp", M, xdt)
+    state_decay = torch.exp(cl).permute(0, 1, 3, 2).reshape(b, l, chunk, g, rep)
+    hg = h_in.to(f32).reshape(b, l, g, rep, p, n)
+    y_inter = torch.einsum("blign,blgrpn,bligr->bligrp", Cc, hg, state_decay)
+    return (y_intra + y_inter).reshape(b, s, h, p).to(x.dtype)
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 B: torch.Tensor, C: torch.Tensor, chunk: int,
                 init_state: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD. Shapes:
+    """Chunked SSD: :func:`chunk_state`, :func:`state_pass`, :func:`chunk_scan`.
       x: (b, s, h, p)  dt: (b, s, h)  A: (h,)  B, C: (b, s, g, n); h = g*rep
     Returns (y: (b, s, h, p) in x's dtype, final_state: (b, h, p, n) f32).
     """
-    b, s, h, p = x.shape
-    g, n = B.shape[2], B.shape[3]
-    rep = h // g
-    if s % chunk:
-        raise ValueError(f"sequence length {s} is not a multiple of chunk {chunk}")
-    l = s // chunk
-
-    f32 = torch.float32
-    dA = (dt.to(f32) * A.to(f32)).reshape(b, l, chunk, h)                  # (b,l,c,h)
-    xdt = (x.to(f32) * dt.to(f32)[..., None]).reshape(b, l, chunk, g, rep, p)
-    Bc = B.to(f32).reshape(b, l, chunk, g, n)
-    Cc = C.to(f32).reshape(b, l, chunk, g, n)
-
-    cum = torch.cumsum(dA, dim=2)                                          # (b,l,c,h)
-    # intra-chunk: L[i,j] = exp(segsum)  per head
-    L = torch.exp(_segsum(dA.movedim(-1, 2)))                              # (b,l,h,c,c)
-    L = L.reshape(b, l, g, rep, chunk, chunk)
-    CB = torch.einsum("blign,bljgn->blgij", Cc, Bc)                        # (b,l,g,c,c)
-    M = CB[:, :, :, None] * L                                              # (b,l,g,r,c,c)
-    y_intra = torch.einsum("blgrij,bljgrp->bligrp", M, xdt)
-
-    # per-chunk input states
-    decay_states = torch.exp(cum[:, :, -1:, :] - cum)                      # (b,l,c,h)
-    ds = decay_states.reshape(b, l, chunk, g, rep)
-    S = torch.einsum("bljgn,bljgr,bljgrp->blgrpn", Bc, ds, xdt)            # (b,l,g,r,p,n)
-
-    # inter-chunk recurrence, chunk by chunk in order
-    chunk_decay = torch.exp(cum[:, :, -1, :]).reshape(b, l, g, rep)        # (b,l,g,r)
-    if init_state is None:
-        h_cur = torch.zeros((b, g, rep, p, n), dtype=f32, device=x.device)
-    else:
-        h_cur = init_state.to(f32).reshape(b, g, rep, p, n)
-    h_ins = []
-    for i in range(l):
-        h_ins.append(h_cur)
-        h_cur = h_cur * chunk_decay[:, i, :, :, None, None] + S[:, i]
-    h_in = torch.stack(h_ins, dim=1)                                       # (b,l,g,r,p,n)
-
-    state_decay = torch.exp(cum).reshape(b, l, chunk, g, rep)              # (b,l,c,g,r)
-    y_inter = torch.einsum("blign,blgrpn,bligr->bligrp", Cc, h_in, state_decay)
-
-    y = (y_intra + y_inter).reshape(b, s, h, p)
-    return y.to(x.dtype), h_cur.reshape(b, h, p, n)
+    if x.shape[1] % chunk:
+        raise ValueError(f"sequence length {x.shape[1]} is not a multiple of chunk {chunk}")
+    states, cum = chunk_state(x, dt, A, B, chunk)
+    h_in, final = state_pass(states, cum, chunk, init_state)
+    return chunk_scan(x, dt, B, C, cum, h_in, chunk), final
 
 
 def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,

@@ -138,7 +138,7 @@ def test_cpu_wrapper_counts_no_variant_launch():
 def test_build_names_libraries_by_source_and_needs_nvcc():
     srcs = _build.sources("flash_attention")
     assert [p.name for p in srcs] == ["flash_attention.cu", "flash_attention_sm90.cu"]
-    assert [p.name for p in _build.headers("flash_attention")] == ["hopper.cuh"]
+    assert _build.headers("flash_attention") == [_build.shared_include() / "hopper.cuh"]
     lib = _build.library_path("flash_attention")
     assert lib.parent == _build.BUILD_DIR and lib == _build.library_path("flash_attention")
     try:
@@ -161,6 +161,13 @@ def test_build_hashes_headers_but_compiles_only_sources(tmp_path, monkeypatch):
     assert first == _build.library_path("k")
     header.write_text("// two\n")
     assert _build.library_path("k") != first
+    # a header in the shared directory is hashed into every library's name
+    second = _build.library_path("k")
+    shared = tmp_path / "csrc"
+    shared.mkdir()
+    (shared / "common.cuh").write_text("// shared\n")
+    assert _build.headers("k") == [shared / "common.cuh", header]
+    assert _build.library_path("k") != second
 
 
 # --------------------------------------------------------------------------- #
