@@ -28,7 +28,14 @@ random weights:
   TCE checkpoint of the trained params through ``DiskStore`` with the
   ``int8`` codec, which quantises and dequantises through the hand-written
   kernels, and a restore; then the port's rank worker as a subprocess on the
-  card, killed in the middle of a save and restored, at its reduced default.
+  card, killed in the middle of a save and restored, at its reduced default;
+* the TRANSOM recovery loop (``repro_torch.substrate.driver.run_protected``
+  over ``ProcessSubstrate(device="cuda")``): two rank processes on the card
+  train 24 steps through two SIGKILLs, TOL's error checks run on the card,
+  the killed ranks' nodes are evicted and spares claimed, and the merged
+  loss curve equals an uninterrupted run's bit for bit. The ranks run the
+  reference's process-mode size (the reduced arch, 1 layer) through plain
+  attention and the ``raw`` codec, so this phase launches no hand kernel.
 
 The train phase also takes two steps that say where a step's time goes: one
 with the gradients and the AdamW update timed apart (through the trainer's
@@ -1044,6 +1051,65 @@ def phase_worker():
     return out
 
 
+CAPSTONE_KW = dict(n_ranks=2, n_spares=2, seed=0, total_steps=24, batch=2, seq=16, lr=3e-4)
+CAPSTONE_CFG = dict(total_steps=24, ckpt_every=6, seed=0)
+CAPSTONE_KILLS = ((9, 1), (17, 0))
+
+
+def phase_capstone():
+    """The TRANSOM recovery loop on the card: two torch rank processes, each
+    with its own CUDA context, train under the port's ``run_protected``; ranks
+    1 and 0 are SIGKILLed at steps 9 and 17, TOL checks and evicts their
+    nodes, claims spares and restores from the TCE checkpoint; the merged loss
+    curve must equal an uninterrupted run's bit for bit. The ranks train the
+    reduced arch (1 layer) through the plain attention and checkpoint with the
+    ``raw`` codec, as the reference's process ranks do: no hand-written kernel
+    runs on this path."""
+    from repro_torch.core.tol import error_check_tasks
+    from repro_torch.substrate.driver import DriveConfig, KillSpec, run_protected
+    from repro_torch.substrate.process import ProcessSubstrate
+
+    checks = error_check_tasks(device="cuda")
+    check(all(c.ok for c in checks), f"error checks on the card: {checks}")
+    runs, spawns, per_run = {}, [], {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_capstone_") as root:
+        for name, kills in (("faulty", CAPSTONE_KILLS), ("clean", ())):
+            sub = ProcessSubstrate(ckpt_dir=str(Path(root) / name), device="cuda", **CAPSTONE_KW)
+            try:
+                runs[name] = run_protected(sub, DriveConfig(scenario="capstone", **CAPSTONE_CFG),
+                                           tuple(KillSpec(s, r) for s, r in kills))
+            finally:
+                sub.close()
+            spawns += sub.spawn_log
+            per_run[name] = len(sub.spawn_log)
+    faulty, clean = runs["faulty"], runs["clean"]
+    check(faulty["completed"] and clean["completed"], "a capstone run did not complete")
+    check(faulty["restarts"] == {"inplace": 0, "resched": 2},
+          f"restarts {faulty['restarts']}, want 2 reschedules")
+    check(faulty["decisions"]["by_decision"] == {"claim_spare": 2},
+          f"decisions {faulty['decisions']['by_decision']}, want 2 spare claims")
+    check(clean["restarts"] == {"inplace": 0, "resched": 0}, f"clean run restarted: {clean}")
+    check([e[0] for e in faulty["losses"]] == list(range(1, 25)),
+          f"merged curve steps {[e[0] for e in faulty['losses']]}")
+    check(all(math.isfinite(v) for _, v in faulty["losses"]), "non-finite loss")
+    check(faulty["losses"] == clean["losses"], "the merged curve differs from the clean run's")
+    check(all(s["device"] == "cuda:0" for s in spawns),
+          f"ready lines name {sorted({s['device'] for s in spawns})}, want cuda:0")
+    wall = {k: r["measured"]["wall_s"] for k, r in runs.items()}
+    out = {"phase": "capstone", "settings": dict(CAPSTONE_KW, **CAPSTONE_CFG),
+           "kills": [list(k) for k in CAPSTONE_KILLS],
+           "error_checks": {c.name: {"ok": c.ok, "seconds": c.elapsed_s} for c in checks},
+           "wall_s": wall, "recovery_cost_s": wall["faulty"] - wall["clean"],
+           "spawns": per_run, "spawn_count": len(spawns),
+           "spawn_s_median": statistics.median(s["spawn_s"] for s in spawns),
+           "lost_steps": faulty["lost_steps"], "restarts": faulty["restarts"],
+           "decisions": faulty["decisions"]["by_decision"],
+           "final_loss": faulty["final_loss"], "bit_identical": True,
+           "timeline_digest": {k: r["timeline_digest"] for k, r in runs.items()}}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -1085,6 +1151,7 @@ def main() -> int:
     del state
     torch.cuda.empty_cache()
     phase_worker()
+    phase_capstone()
     kernels = []
     for name, kind, src, count in (("flash_attention_fwd", "sm90", "flash_attention_sm90.cu",
                                     launches),

@@ -37,7 +37,8 @@ Checkpoints carry the reference's flat paths and bytes, so a rank of either
 package restores the other's (the train-state trees must match: same arch,
 layers and moment dtype).
 
-:class:`RankProcess` is the controller's end of one worker.
+:class:`RankProcess` is the controller's end of one worker (``ProcessSubstrate``
+in :mod:`repro_torch.substrate.process` holds one per rank).
 """
 from __future__ import annotations
 
@@ -242,11 +243,21 @@ class RankProcess:
             self.close()
             tail = Path(log_path).read_text(errors="replace")[-2000:]
             raise RuntimeError(f"worker failed to start ({log_path}):\n{tail}")
+        self.ready = ready
         self.pid = ready["pid"]
 
     @property
     def alive(self) -> bool:
         return self.proc.poll() is None
+
+    def send(self, obj: dict) -> bool:
+        """Write one protocol line; False = the worker is gone."""
+        try:
+            self.proc.stdin.write(json.dumps(obj) + "\n")
+            self.proc.stdin.flush()
+            return True
+        except (BrokenPipeError, OSError, ValueError):
+            return False
 
     def recv(self) -> Optional[dict]:
         """Blocking read of one protocol line; None = worker died (EOF)."""
@@ -254,12 +265,15 @@ class RankProcess:
         return json.loads(line) if line else None
 
     def call(self, obj: dict) -> Optional[dict]:
+        return self.recv() if self.send(obj) else None
+
+    def kill(self) -> None:
+        """SIGKILL the worker: no cleanup, no flush."""
         try:
-            self.proc.stdin.write(json.dumps(obj) + "\n")
-            self.proc.stdin.flush()
-        except (BrokenPipeError, OSError, ValueError):
-            return None
-        return self.recv()
+            self.proc.kill()
+        except OSError:
+            pass
+        self.proc.wait()
 
     def close(self) -> None:
         """Ask the worker to exit (kill it if it will not), then release it."""

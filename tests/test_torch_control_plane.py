@@ -1,0 +1,122 @@
+"""The port's control plane against the reference's: the copied modules
+(simulation kernel, recovery planner, report and CLI conventions, the TOL
+FSM, lease server and cluster view, the Substrate protocol and the recovery
+driver) are the reference's source with the import prefix rewritten, and the
+TOL checks that run on a device (burn-in, collective) hold on the CPU.
+"""
+import difflib
+import re
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core.tol import tasks as ref_tasks  # noqa: E402
+from repro.sim.topology import NodeState as RefNodeState  # noqa: E402
+from repro.sim.topology import Topology as RefTopology  # noqa: E402
+from repro_torch.core.tol import tasks  # noqa: E402
+from repro_torch.sim.topology import NodeState, Topology  # noqa: E402
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+#: copies of the reference, path -> (reference lines dropped, port lines
+#: added) after the import rewrite; none of the plain copies names JAX
+COPIES = {
+    "sim/clock.py": ((), ()),
+    "sim/faults.py": ((), ()),
+    "sim/topology.py": ((), ()),
+    "recovery/__init__.py": ((), ()),
+    "recovery/tiers.py": ((), ()),
+    "recovery/planner.py": ((), ()),
+    "recovery/executor.py": ((), ()),
+    "recovery/cadence.py": ((), ()),
+    "report.py": ((), ()),
+    "cli.py": ((), ()),
+    "core/tol/fsm.py": ((), ()),
+    "core/tol/server.py": ((), ()),
+    "core/tol/cluster.py": ((), ()),
+    # the protocol's docstring names the ranks' framework; it gains device
+    "substrate/base.py": (
+        ("  JAX ranks (``python -m repro.substrate.worker`` subprocesses running the",),
+        ("  PyTorch ranks (``python -m repro.substrate.worker`` subprocesses running the",
+         "    device: object      # where the ranks and the error checks run")),
+    # the error checks run on the substrate's device
+    "substrate/driver.py": (
+        ("        checks = error_check_tasks(sub.topology, bad_ranks, rank_to_node)",),
+        ("        checks = error_check_tasks(sub.topology, bad_ranks, rank_to_node, "
+         "device=sub.device)",)),
+}
+
+
+def _import_rewrite(src: str) -> str:
+    return re.sub(r"^(\s*)(from|import) repro\.", r"\1\2 repro_torch.", src, flags=re.M)
+
+
+@pytest.mark.parametrize("path", sorted(COPIES))
+def test_copy_matches_the_reference(path):
+    ref = _import_rewrite((SRC / "repro" / path).read_text()).splitlines()
+    port = (SRC / "repro_torch" / path).read_text().splitlines()
+    diff = list(difflib.ndiff(ref, port))
+    dropped = tuple(l[2:] for l in diff if l.startswith("- "))
+    added = tuple(l[2:] for l in diff if l.startswith("+ "))
+    assert (dropped, added) == COPIES[path]
+
+
+def test_burn_in_and_collective_check_pass_on_the_cpu():
+    burn = tasks.device_burn_in("cpu")
+    assert (burn.name, burn.ok, burn.bad_nodes) == ("device_burn_in", True, [])
+    coll = tasks.collective_check("cpu")
+    assert (coll.name, coll.ok, coll.detail) == ("collective_check", True,
+                                                 "single-device trivial pass")
+
+
+def test_burn_in_fails_on_a_corrupted_operand(monkeypatch):
+    matmul = torch.matmul
+
+    def corrupting(x, y):
+        x = x.clone()
+        x[3, 7] += 1.0          # one flipped value of the first operand
+        return matmul(x, y)
+
+    monkeypatch.setattr(torch, "matmul", corrupting)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    burn = tasks.device_burn_in("cpu")
+    assert not burn.ok and burn.bad_nodes == ["cpu"]
+    assert torch.backends.cuda.matmul.allow_tf32 == tf32
+
+
+def _failed_cluster(topology_cls, node_state):
+    cl = topology_cls(4, n_spares=2, nodes_per_rack=2)
+    for rank, node in enumerate(cl.assigned):
+        cl.bind_rank(rank, node)
+    cl.nodes[cl.assigned[1]].state = node_state.FAILED
+    cl.nodes[cl.assigned[2]].state = node_state.DEGRADED
+    cl.nodes[cl.assigned[2]].fail_category = "network"
+    return cl, {r: cl.node_of_rank(r) for r in range(4)}
+
+
+def _summary(results):
+    return [(r.name, r.ok, r.bad_nodes) for r in results]
+
+
+def test_error_check_tasks_match_the_reference():
+    ref_cl, ref_map = _failed_cluster(RefTopology, RefNodeState)
+    cl, rank_map = _failed_cluster(Topology, NodeState)
+    ref = ref_tasks.error_check_tasks(ref_cl, [3], ref_map)
+    port = tasks.error_check_tasks(cl, [3], rank_map, device="cpu")
+    assert [r.name for r in port] == ["disk_check", "device_burn_in", "collective_check",
+                                      "node_health_check", "connectivity_check",
+                                      "tee_attribution"]
+    assert _summary(port) == _summary(ref)
+    assert _summary(tasks.warmup_tasks(cl, device="cpu")) == \
+        _summary(ref_tasks.warmup_tasks(ref_cl))
+    assert [r.name for r in tasks.error_check_tasks(device="cpu")] == \
+        [r.name for r in ref_tasks.error_check_tasks()]
+
+
+def test_checks_need_an_explicit_device():
+    with pytest.raises(TypeError):
+        tasks.error_check_tasks()
+    with pytest.raises(TypeError):
+        tasks.warmup_tasks()

@@ -105,3 +105,82 @@ def test_port_worker_restores_a_reference_worker_checkpoint(tmp_path):
     assert port_digest["step"] == 3
     assert json.dumps(port_digest["leaves"], sort_keys=True) == \
            json.dumps(jax_digest["leaves"], sort_keys=True)
+
+
+SHARED = dict(rank=0, n_ranks=1, seed=0, total_steps=24, batch=2, seq=16, layers=1, lr=3e-4)
+
+
+def _rel(got, want):
+    assert [s for s, _ in got] == [s for s, _ in want] == list(range(1, 25))
+    return max(abs(g - w) / abs(w) for (_, g), (_, w) in zip(got, want))
+
+
+def test_port_worker_curve_follows_the_reference_worker_from_a_shared_start(tmp_path):
+    """The reference's worker saves its step-0 state and trains 24 steps; the
+    port's worker restores that state and trains the same 24 steps. The
+    workers compute in bf16 (the reduced arch's ``compute_dtype``), where
+    two executions of the same model round at other places: the reference's
+    own jitted and op-by-op runs of this curve differ by up to 6.8e-4, and
+    the port's first loss is within 3e-6 of the op-by-op reference's. So the
+    curve is held at half of bf16's eps (2^-8); the float32 test below holds
+    it at 1e-4."""
+    pytest.importorskip("jax")
+    store = DiskStore(str(tmp_path / "ckpt"), device="cpu")
+    spec = dict(SHARED, ckpt_dir=str(tmp_path / "ckpt"))
+    jw = RankProcess(spec, tmp_path / "jax.log", module="repro.substrate.worker")
+    try:
+        _ok(jw.call({"cmd": "save", "step": 0}))
+        store.commit(0, 1)
+        want = _ok(jw.call({"cmd": "step", "upto": 24}))["losses"]
+    finally:
+        jw.close()
+    pw = RankProcess(dict(spec, device="cpu"), tmp_path / "port.log")
+    try:
+        _ok(pw.call({"cmd": "restore", "step": 0}))
+        got = _ok(pw.call({"cmd": "step", "upto": 24}))["losses"]
+    finally:
+        pw.close()
+    assert _rel(got, want) <= 2.0 ** -9
+
+
+def test_port_curve_follows_the_reference_curve_in_float32():
+    """The workers' 24 steps (1 layer, batch 2, seq 16, seed 0, the workers'
+    AdamW schedule) from one shared start, in float32 compute: every loss
+    within rel 1e-4 of the reference's."""
+    jax = pytest.importorskip("jax")
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro.configs import get_config as jax_get_config
+    from repro.core.tce.engine import flatten_pytree as jax_flatten
+    from repro.data import SyntheticLMData
+    from repro.train import AdamConfig as JaxAdam
+    from repro.train import TrainConfig as JaxTrainConfig
+    from repro.train import init_train_state as jax_init
+    from repro.train import make_train_step as jax_make_step
+    from repro_torch.configs import get_config
+    from repro_torch.core.tce import unflatten_like
+    from repro_torch.train import AdamConfig, TrainConfig, init_train_state, make_train_step
+
+    jcfg, pcfg = (dataclasses.replace(get("llama3-8b").reduced(), n_layers=SHARED["layers"],
+                                      compute_dtype="float32")
+                  for get in (jax_get_config, get_config))
+    steps = SHARED["total_steps"]
+    sched = dict(lr=SHARED["lr"], warmup_steps=max(steps // 10, 1), decay_steps=steps)
+    jstate = jax_init(jcfg, JaxAdam(**sched), jax.random.key(SHARED["seed"]))
+    pstate = unflatten_like(init_train_state(pcfg, AdamConfig(**sched), device="cpu"),
+                            {k: torch.from_numpy(np.array(v))
+                             for k, v in jax_flatten(jstate).items()})
+    jstep = jax.jit(jax_make_step(jcfg, JaxAdam(**sched), JaxTrainConfig()))
+    pstep = make_train_step(pcfg, AdamConfig(**sched), TrainConfig())
+    data = SyntheticLMData(jcfg.vocab_size, SHARED["seq"], SHARED["batch"], SHARED["seed"])
+    want, got = [], []
+    for s in range(steps):
+        b = data.batch_at(s)
+        jstate, jm = jstep(jstate, {k: jax.numpy.asarray(v) for k, v in b.items()})
+        pstate, pm = pstep(pstate, {k: torch.from_numpy(v) for k, v in b.items()})
+        want.append([s + 1, float(jm["loss"])])
+        got.append([s + 1, float(pm["loss"])])
+    assert _rel(got, want) <= 1e-4
