@@ -27,15 +27,25 @@ random weights:
   card): ``make_train_step`` for 8 timed steps of 4 x 1024 tokens, then a
   TCE checkpoint of the trained params through ``DiskStore`` with the
   ``int8`` codec, which quantises and dequantises through the hand-written
-  kernels, and a restore; then the port's rank worker as a subprocess on the
-  card, killed in the middle of a save and restored, at its reduced default;
+  kernels, and a restore; then the TCE engine on the same params (two nodes,
+  ring backup, ``int8``): the reconciler's thread persists and backs up
+  through the quant kernels while the card trains on, and the state
+  comes back from the cache, from the ring backup after a node
+  loss and from the store after an adjacent double loss, each leg held to
+  the plain codec on the card; then the port's rank worker as a subprocess
+  on the card, killed in the middle of a save and restored, at its reduced
+  default;
 * the TRANSOM recovery loop (``repro_torch.substrate.driver.run_protected``
   over ``ProcessSubstrate(device="cuda")``): two rank processes on the card
   train 24 steps through two SIGKILLs, TOL's error checks run on the card,
   the killed ranks' nodes are evicted and spares claimed, and the merged
   loss curve equals an uninterrupted run's bit for bit. The ranks run the
   reference's process-mode size (the reduced arch, 1 layer) through plain
-  attention and the ``raw`` codec, so this phase launches no hand kernel.
+  attention and the ``raw`` codec, so this phase launches no hand kernel;
+* the launcher's ``--substrate single`` in-process (reduced arch, 30 steps,
+  a checkpoint every 10): resumed after the chain-safe delete of its last
+  step to the same final loss bit for bit, then with the ``int8`` codec,
+  whose persists and restore launch the quant kernels from the reconciler.
 
 The train phase also takes two steps that say where a step's time goes: one
 with the gradients and the AdamW update timed apart (through the trainer's
@@ -54,6 +64,7 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -61,6 +72,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -182,6 +194,11 @@ RESTORE_LOSS_REL_TOL = 2e-4
 # of a half step s/2: x / s (|x / s| <= 127, half an ulp of 127 = 2^-18 s),
 # q * s (2^-24 of 127 s) and the subtraction that measures the error.
 HALF_STEP_SLACK = 1 + 2 * (2.0 ** -18 + 127 * 2.0 ** -24) + 2.0 ** -24
+
+# The TCE engine phase: two nodes with a ring backup; the card trains this
+# many steps while the first save persists and backs up; the wait for a
+# save to become durable; the host memory the phase needs, in saved bytes.
+TCE_NODES, TCE_OVERLAP_STEPS, TCE_WAIT_S, TCE_HOST_FACTOR = 2, 48, 300.0, 7
 
 QB_BLOCK = 256
 # (n, d, block): the cases of tests/test_kernels.py::test_quant_2d_vs_oracle
@@ -915,7 +932,7 @@ def phase_train(fa_ops):
            "profiled_kernel_ms": busy_ms,
            "device_busy_share_of_steady_step": busy_ms / (step_s * 1e3)}
     emit(out)
-    return cfg, state, data
+    return cfg, state, data, step_fn, out
 
 
 def phase_checkpoint(cfg, state, data, qb_ops, qb_ref):
@@ -983,6 +1000,346 @@ def phase_checkpoint(cfg, state, data, qb_ops, qb_ref):
            "loss_rel_tol": RESTORE_LOSS_REL_TOL}
     emit(out)
     return out
+
+
+def host_mem_available() -> int:
+    """Bytes the host can still give (MemAvailable of /proc/meminfo)."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def int8_paths_of(shards, lossless) -> set:
+    """The leaves of one rank's shard map that the int8 codec quantises
+    (codec.encode_shard's rule: a non-empty float leaf off the lossless
+    globs); the rest go through zlib or stay raw."""
+    from repro_torch.core.tce.codec import _QUANT_DTYPES, dtype_name, is_lossless_path
+    return {p for p, (_sp, d) in shards.items()
+            if d.size and dtype_name(d.dtype) in _QUANT_DTYPES
+            and not is_lossless_path(p, lossless)}
+
+
+def phase_tce_engine(cfg, state, data, step_fn, train, qb_ops, qb_ref):
+    """The TCE engine at full width, on the trained params: two nodes with a
+    ring backup, the int8 codec on the card, the reconciler persisting and
+    backing up from its thread while the card keeps training, then restores
+    from each leg of the waterfall (cache, ring backup, store)."""
+    from repro_torch.core.tce import (DiskStore, TCEConfig, TCEngine, crc32_stream,
+                                      flatten_pytree, shard_state, unflatten_like)
+    from repro_torch.models.model import loss_fn
+    from repro_torch.models.params import tree_items, unflatten
+    from repro_torch.substrate.worker import LOSSLESS_PATHS
+
+    n_nodes = TCE_NODES
+    layers = cfg.n_layers
+    # the phase holds ~7x the saved bytes on the host at its peak: four
+    # steps' shards in the arenas (own + backup, two cycles), the saved flat
+    # state, a restored one and the codec's transients; a host that cannot
+    # spare that saves the first 2 layers
+    avail = host_mem_available()
+    if avail < TCE_HOST_FACTOR * sum(t.nbytes for _p, t in tree_items(state.params)):
+        layers = 2
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+
+    def saved(params):
+        return unflatten({p: t[:layers] if p.startswith("segments/stack/") else t
+                          for p, t in tree_items(params)})
+
+    params = saved(state.params)
+    nbytes = sum(t.nbytes for _p, t in tree_items(params))
+    check(avail >= TCE_HOST_FACTOR * nbytes,
+          f"host has {avail / 1e9:.1f} GB free, the phase needs {TCE_HOST_FACTOR * nbytes / 1e9:.1f}")
+
+    def flat_now():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flat = flatten_pytree({"params": params})
+        return flat, time.perf_counter() - t0
+
+    def batch_at(step):
+        return {k: torch.from_numpy(v).to("cuda") for k, v in data.batch_at(step).items()}
+
+    flat1, d2h1_s = flat_now()
+    shards1 = shard_state(flat1, n_nodes)
+    int8_by_rank = [int8_paths_of(sh, LOSSLESS_PATHS) for sh in shards1]
+    per_rank = [sum(d.nbytes for _sp, d in sh.values()) for sh in shards1]
+    # each node holds max_cycles of its own shards and of its neighbour's
+    # backup, plus a page of rounding per leaf
+    mem_limit = max(2 * (per_rank[r] + per_rank[r - 1]) + 2 * 4096 * 2 * len(sh)
+                    for r, sh in enumerate(shards1))
+    digests1 = [{p: crc32_stream(d) for p, (_sp, d) in sh.items()} for sh in shards1]
+    del shards1
+    timing = {"persist": [], "backup": []}
+    root = tempfile.mkdtemp(prefix="chip_smoke_tce_")
+    eng = TCEngine(TCEConfig(n_nodes=n_nodes, backup=True, codec="int8", max_cycles=2,
+                             mem_limit_bytes=mem_limit, lossless_paths=LOSSLESS_PATHS),
+                   DiskStore(root, device="cuda"))
+    rec = eng.reconciler
+    # the wall time of each leg, per rank and step (a timing wrapper only:
+    # each leg runs as the library runs it, on the reconciler thread's
+    # default stream)
+    for leg in ("persist", "backup"):
+        orig = getattr(rec, f"_{leg}")
+
+        def timed(cache, step, shards, digmap, _orig=orig, _leg=leg):
+            t0 = time.perf_counter()
+            _orig(cache, step, shards, digmap)
+            timing[_leg].append((step, cache.rank, time.perf_counter() - t0, t0))
+        setattr(rec, f"_{leg}", timed)
+
+    def overlap(h, first_step):
+        """The card keeps training while the reconciler persists and backs
+        up the save behind ``h``; then ``h`` must become durable."""
+        nonlocal state
+        steps_s, pending_after, starts = [], [], []
+        for k in range(TCE_OVERLAP_STEPS):
+            batch = batch_at(first_step + k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            starts.append(t0 - h.t_saved)
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            steps_s.append(time.perf_counter() - t0)
+            pending_after.append(rec._pending())
+            check(math.isfinite(float(metrics["loss"])), "non-finite loss while persisting")
+        t_wait = time.perf_counter()
+        check(h.wait(timeout=TCE_WAIT_S), f"save {h.step} not durable within {TCE_WAIT_S} s")
+        durable_s = (time.perf_counter() - t_wait) + sum(steps_s)
+        check(rec.errors == [], f"reconciler errors: {rec.errors}")
+        overlapped = [t * 1e3 for t, p in zip(steps_s, pending_after) if p]
+        check(overlapped, "the reconciler finished before the first overlapped step ended")
+        # when each leg ran, in seconds from the save's return, beside the
+        # steps' start times: which leg a slow step sat under
+        legs = sorted((t0 - h.t_saved, t0 - h.t_saved + wall, leg, rank)
+                      for leg in timing for st, rank, wall, t0 in timing[leg] if st == h.step)
+        return {"steps": TCE_OVERLAP_STEPS,
+                "steps_overlapped": len(overlapped), "step_ms": [t * 1e3 for t in steps_s],
+                "step_start_s": starts, "legs": legs,
+                "overlapped_ms_mean": statistics.mean(overlapped),
+                "overlapped_ms_median": statistics.median(overlapped),
+                "overlapped_ms_max": max(overlapped),
+                "steady_ms_per_step": train["steady_ms_per_step"],
+                "durable_after_save_s": durable_s}
+    out = {"phase": "tce_engine", "arch": ARCH, "n_layers": layers, "nodes": n_nodes,
+           "codec": "int8", "saved_gb": nbytes / 1e9, "mem_limit_gb": mem_limit / 1e9,
+           "host_avail_gb": avail / 1e9, "leaves": len(flat1),
+           "int8_shards": [len(s) for s in int8_by_rank]}
+    launches = {}
+    try:
+        s1 = int(state.step)
+        qb_ops.LAUNCHES.update(quantize=0, dequantize=0)
+        clock0 = eng.clock.seconds
+        t0 = time.perf_counter()
+        h = eng.save(s1, flat1)
+        h.t_saved = time.perf_counter()
+        save1_s = h.t_saved - t0
+        del flat1
+        out["save1"] = {"step": s1, "d2h_s": d2h1_s, "d2h_gb_per_s": nbytes / d2h1_s / 1e9,
+                        "cache_wall_s": h.cache_wall_s, "save_wall_s": save1_s,
+                        "stall_s": d2h1_s + save1_s, "bytes_staged": h.bytes_staged,
+                        "modeled_cache_s": h.modeled_cache_s}
+        out["overlap"] = {"save1": overlap(h, s1)}
+        launches["save1"] = dict(qb_ops.LAUNCHES)
+
+        # save 2: every leaf changed, so each is persisted and backed up anew
+        s2 = s1 + TCE_OVERLAP_STEPS
+        check(int(state.step) == s2, f"state.step {int(state.step)}, want {s2}")
+        params = saved(state.params)
+        flat2, d2h2_s = flat_now()
+        shards2 = shard_state(flat2, n_nodes)
+        changed = [{p for p, (_sp, d) in sh.items() if crc32_stream(d) != digests1[r].get(p)}
+                   for r, sh in enumerate(shards2)]
+        del shards2
+        batch = batch_at(s2)
+        with torch.no_grad():        # before training moves the live params on
+            loss_saved = float(loss_fn(params, cfg, batch)[0])
+        qb_ops.LAUNCHES.update(quantize=0, dequantize=0)
+        t0 = time.perf_counter()
+        h2 = eng.save(s2, flat2)
+        h2.t_saved = time.perf_counter()
+        save2_s = h2.t_saved - t0
+        out["overlap"]["save2"] = overlap(h2, s2)
+        launches["save2"] = dict(qb_ops.LAUNCHES)
+        out["save2"] = {"step": s2, "d2h_s": d2h2_s, "d2h_gb_per_s": nbytes / d2h2_s / 1e9,
+                        "cache_wall_s": h2.cache_wall_s, "save_wall_s": save2_s,
+                        "stall_s": d2h2_s + save2_s, "bytes_staged": h2.bytes_staged,
+                        "changed_leaves": [len(c) for c in changed]}
+        out["persist"] = _leg_times(timing["persist"], nbytes, (s1, s2))
+        out["backup"] = _leg_times(timing["backup"], nbytes, (s1, s2))
+        out["modeled_s"] = {"saves_and_reconcile": eng.clock.seconds - clock0}
+
+        # predicted kernel launches, from the shards: every int8 shard is
+        # quantised for its persist and for its backup, and dequantised on
+        # arrival; on save 2, only the changed ones
+        n_int8 = sum(len(s) for s in int8_by_rank)
+        n_int8_changed = sum(len(s & c) for s, c in zip(int8_by_rank, changed))
+        want = {"save1": {"quantize": 2 * n_int8, "dequantize": n_int8},
+                "save2": {"quantize": 2 * n_int8_changed, "dequantize": n_int8_changed}}
+        for key in want:
+            check(launches[key] == want[key], f"{key}: launches {launches[key]}, want {want[key]}")
+
+        # restores: cache, then ring backup (node 0 lost), then the store
+        # (node 1 lost too, which held node 0's backup)
+        restores = {}
+        saved2 = shard_state(flat2, n_nodes)
+        for name, fail, sources in (
+                ("cache", None, {"cache": n_nodes, "backup": 0, "store": 0, "store_full": 0}),
+                ("backup", 0, {"cache": 1, "backup": 1, "store": 0, "store_full": 0}),
+                ("store", 1, {"cache": 0, "backup": 0, "store": n_nodes, "store_full": 0})):
+            if fail is not None:
+                eng.node_failed(fail)
+            qb_ops.LAUNCHES.update(quantize=0, dequantize=0)
+            c0 = eng.clock.seconds
+            t0 = time.perf_counter()
+            got_step, got = eng.restore()
+            wall = time.perf_counter() - t0
+            launches[f"restore_{name}"] = dict(qb_ops.LAUNCHES)
+            check(got_step == s2, f"{name} restore gave step {got_step}, want {s2}")
+            check(eng.stats["restore_sources"] == sources,
+                  f"{name} restore sources {eng.stats['restore_sources']}, want {sources}")
+            worst = _check_restored(got, saved2, fail, int8_by_rank, qb_ref)
+            restores[name] = {"wall_s": wall, "gb_per_s": nbytes / wall / 1e9,
+                              "modeled_s": eng.clock.seconds - c0,
+                              "max_err_half_steps": worst,
+                              "launches": launches[f"restore_{name}"]}
+            if name == "store":
+                restored = unflatten_like({"params": params}, got)["params"]
+                with torch.no_grad():
+                    loss_restored = float(loss_fn(restored, cfg, batch)[0])
+                del restored
+                rel = abs(loss_restored - loss_saved) / abs(loss_saved)
+                check(rel <= RESTORE_LOSS_REL_TOL,
+                      f"loss {loss_saved} saved vs {loss_restored} restored (rel {rel})")
+                restores[name].update(loss_saved=loss_saved, loss_restored=loss_restored,
+                                      loss_rel_diff=rel)
+            del got
+        check(launches["restore_cache"] == launches["restore_backup"]
+              == {"quantize": 0, "dequantize": 0}, f"restore launches {launches}")
+        check(launches["restore_store"] == {"quantize": 0, "dequantize": n_int8},
+              f"store restore launches {launches['restore_store']}, want {n_int8} dequantise")
+        check(rec.errors == [], f"reconciler errors: {rec.errors}")
+        out["restores"] = restores
+        out["launches_by_stage"] = launches
+        out["launches"] = {k: sum(v[k] for v in launches.values())
+                           for k in ("quantize", "dequantize")}
+        out["reconciler"] = {"errors": rec.errors, "passes": rec.passes, **rec.stats}
+    finally:
+        eng.close()
+        shutil.rmtree(root, ignore_errors=True)
+    emit(out)
+    return out
+
+
+def _leg_times(rows, nbytes, steps):
+    """Per step: the wall seconds of one reconciler leg summed over ranks."""
+    per = {s: sum(t for st, _r, t, _t0 in rows if st == s) for s in steps}
+    return {str(s): {"wall_s": w, "gb_per_s": nbytes / w / 1e9 if w else None}
+            for s, w in per.items()}
+
+
+def _check_restored(got, saved, failed, int8_by_rank, qb_ref):
+    """Every restored shard against the saved one: a rank served from its
+    cache is bit-exact; a rank served through the int8 codec (its backup or
+    the store) is bit-exact with the plain round trip on the card for its
+    int8 leaves and byte-exact for the rest. Returns the worst error in
+    half steps."""
+    from repro_torch.core.tce import shard_state
+    worst = 0.0
+    for r, shards in enumerate(shard_state(got, len(saved))):
+        through_codec = failed is not None and r <= failed
+        for path, (_sp, arr) in shards.items():
+            want = saved[r][path][1]
+            if not through_codec or path not in int8_by_rank[r]:
+                check(arr.tobytes() == want.tobytes(), f"rank {r} {path} changed")
+                continue
+            x = torch.from_numpy(want).to("cuda")
+            y = torch.from_numpy(np.ascontiguousarray(arr)).to("cuda")
+            _q, s, plain = plain_codec(qb_ref, x)
+            check(same(y, plain), f"rank {r} {path}: restored != plain dequant(plain quant)")
+            flat_err = (x - y).reshape(-1)
+            pad = (-flat_err.numel()) % QB_BLOCK
+            err = torch.cat([flat_err, flat_err.new_zeros(pad)]).reshape(-1, QB_BLOCK)
+            worst = max(worst, float((err.abs().amax(dim=-1) / s).max()) * 2)
+            del x, y, plain, s, err, flat_err
+    check(worst <= HALF_STEP_SLACK, f"restored error {worst} half-steps, want <= 1")
+    return worst
+
+
+SINGLE_ARGS = ["--substrate", "single", "--arch", "llama3-8b", "--reduced", "--steps", "30",
+               "--ckpt-every", "10", "--log-every", "10", "--device", "cuda"]
+
+
+def phase_train_single(qb_ops, qb_ref):
+    """The launcher's in-process loop on the card (``launch.train.main``, not
+    a subprocess: a CUDA spawn costs ~20 s): 30 steps of the reduced arch
+    with a raw checkpoint every 10; the last step deleted (chain-safe) and
+    the run resumed from step 20 to the same final loss, bit for bit; then
+    the same with the int8 codec, whose persists and restore go through the
+    quant kernels from the reconciler's thread."""
+    from repro_torch.core.tce import DiskStore
+    from repro_torch.launch import train as train_cli
+
+    out = {"phase": "train_single", "args": SINGLE_ARGS}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_single_"))
+    launches = {"quantize": 0, "dequantize": 0}
+    try:
+        def run(name, *extra):
+            qb_ops.LAUNCHES.update(quantize=0, dequantize=0)
+            t0 = time.perf_counter()
+            rc = train_cli.main(SINGLE_ARGS + list(extra) + ["--json", str(root / f"{name}.json")])
+            wall = time.perf_counter() - t0
+            check(rc == 0, f"train --substrate single {' '.join(extra)} exited {rc}")
+            rep = json.loads((root / f"{name}.json").read_text())
+            check(rep["completed"] and math.isfinite(rep["final_loss"]), f"{name}: {rep}")
+            for k in launches:
+                launches[k] += qb_ops.LAUNCHES[k]
+            out[name] = {"final_loss": rep["final_loss"], "wall_s": wall,
+                         "launches": dict(qb_ops.LAUNCHES)}
+            return rep, dict(qb_ops.LAUNCHES)
+
+        def int8_written(store, step):      # quantised by that step's persist
+            return sum(e.get("enc") == "int8" for e in store.rank_index(step, 0))
+
+        def int8_read(store, step):         # dequantised by a restore of it
+            return sum(_resolved_enc(store, e) == "int8" for e in store.rank_index(step, 0))
+
+        raw, int8 = root / "raw", root / "int8"
+        a, la = run("raw", "--codec", "raw", "--ckpt-dir", str(raw))
+        check(la == {"quantize": 0, "dequantize": 0}, f"raw run launched {la}")
+        DiskStore(str(raw)).delete_step(30)
+        b, _ = run("raw_resumed", "--codec", "raw", "--ckpt-dir", str(raw), "--resume")
+        check(b["final_loss"] == a["final_loss"],
+              f"resumed final loss {b['final_loss']} != {a['final_loss']}")
+        c, lc = run("int8", "--codec", "int8", "--ckpt-dir", str(int8))
+        store = DiskStore(str(int8), device="cuda")
+        want_q = sum(int8_written(store, s) for s in (10, 20, 30))
+        check(lc == {"quantize": want_q, "dequantize": 0} and want_q > 0,
+              f"int8 run launched {lc}, want {want_q} quantise")
+        check(c["final_loss"] == a["final_loss"],
+              f"int8 run's final loss {c['final_loss']} != raw run's {a['final_loss']}")
+        store.delete_step(30)
+        d, ld = run("int8_resumed", "--codec", "int8", "--ckpt-dir", str(int8), "--resume")
+        want = {"quantize": int8_written(store, 30), "dequantize": int8_read(store, 20)}
+        check(ld == want, f"int8 resume launched {ld}, want {want}")
+        rel = abs(d["final_loss"] - a["final_loss"]) / abs(a["final_loss"])
+        check(rel <= RESTORE_LOSS_REL_TOL,
+              f"int8-resumed final loss {d['final_loss']} vs {a['final_loss']} (rel {rel})")
+        out.update(bit_identical=True, int8_resumed_loss_rel_diff=rel,
+                   int8_loss_rel_tol=RESTORE_LOSS_REL_TOL, launches=launches)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    emit(out)
+    return out
+
+
+def _resolved_enc(store, ent):
+    """The encoding of the file an index entry (or its delta ref) names."""
+    if "file" in ent:
+        return ent.get("enc")
+    home = {e["spec"]["path"]: e for e in store.rank_index(int(ent["ref_step"]), 0)}
+    return home[ent["spec"]["path"]].get("enc")
 
 
 def phase_worker():
@@ -1146,12 +1503,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     quant = phase_quant_kernel(qb_ops, qb_ref)
     torch.cuda.empty_cache()
-    cfg, state, data = phase_train(fa_ops)
+    cfg, state, data, step_fn, train = phase_train(fa_ops)
     ckpt = phase_checkpoint(cfg, state, data, qb_ops, qb_ref)
-    del state
+    engine_run = phase_tce_engine(cfg, state, data, step_fn, train, qb_ops, qb_ref)
+    del state, step_fn
     torch.cuda.empty_cache()
     phase_worker()
     phase_capstone()
+    single = phase_train_single(qb_ops, qb_ref)
     kernels = []
     for name, kind, src, count in (("flash_attention_fwd", "sm90", "flash_attention_sm90.cu",
                                     launches),
@@ -1167,9 +1526,14 @@ def main() -> int:
     for name, line, key, count in (("quantize_blockwise", 18, "quantize", "quant_launches"),
                                    ("dequantize_blockwise", 29, "dequantize", "dequant_launches")):
         t = quant[key]
+        # launches: the checkpoint phase's plus the engine phase's (both
+        # saves and backups, and the restores), with the split beside them
+        by_path = {"checkpoint": ckpt[count], "tce_engine": engine_run["launches"][key],
+                   "train_single": single["launches"][key]}
         kernels.append({
             "name": name, "route": "cuda", "source": QB_SRC, "replaces": f"{QB_REPLACES}:{line}",
-            "launches": ckpt[count], "max_abs_err": quant["max_abs_err"], "ms": t["ms"],
+            "launches": by_path["checkpoint"] + by_path["tce_engine"],
+            "launches_by_path": by_path, "max_abs_err": quant["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
     for name, kind, src, count in (("ssd_scan", "sm90", "ssd_scan_sm90.cu", ssd_launches),

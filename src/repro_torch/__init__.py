@@ -12,6 +12,8 @@ asking for ``cuda`` on a host without a card raises :class:`DeviceUnavailable`.
 """
 from __future__ import annotations
 
+import os
+
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -33,4 +35,16 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
-__all__ = ["DEFAULT_DEVICE", "DeviceUnavailable", "resolve_device"]
+def deterministic(device: str | torch.device) -> None:
+    """Bit-for-bit repeatable training on ``device``: deterministic
+    algorithms, TF32 off and, on a card, cuBLAS's fixed workspace (whose
+    variable is read when a cuBLAS call is made, so set it before the
+    first one; an already-set value is kept)."""
+    if torch.device(device).type == "cuda":
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+__all__ = ["DEFAULT_DEVICE", "DeviceUnavailable", "deterministic", "resolve_device"]

@@ -1,19 +1,20 @@
-"""Checkpoint shard layout.
+"""Checkpoint shard layout + topology-change resharding.
 
 The port's own copy of ``repro.core.tce.sharding`` (line for line, but for
 the dtype name of a bf16 leaf, see ``codec.BF16``), so that both packages cut
-a state into the same shards. The reference's ``reshard`` waits for the port
-of the TCE engine, which calls it.
+a state into the same shards.
 
 The engine stores *named shards*: each leaf of the train state is block-
 partitioned along its axis 0 across node ranks (ZeRO-style; leaves whose axis0
 does not divide are owned by rank ``hash(path) % n`` — ownership, not
 replication, so save volume matches Eq. (1) behaviour). Every shard carries
-``(global_shape, axis, start, stop)``.
+``(global_shape, axis, start, stop)`` so a checkpoint written on N nodes can be
+**resharded** and restored on M != N nodes (elastic shrink/grow).
 
 Zero-copy contract: ``shard_state`` never materialises shard bytes — every
 shard is a *view* into the caller's leaf (axis-0 slices of C-contiguous
-arrays stay contiguous).
+arrays stay contiguous). The single physical copy in the save path happens
+when ``CacheServer.put`` moves these views straight into arena slabs.
 """
 from __future__ import annotations
 
@@ -111,3 +112,9 @@ def unshard_state(node_shards: List[Optional[NodeShards]]
             spec0.global_shape)
     return out
 
+
+
+def reshard(node_shards: List[Optional[NodeShards]], new_n: int
+            ) -> List[NodeShards]:
+    """Re-partition a checkpoint onto a different node count (elastic)."""
+    return shard_state(unshard_state(node_shards), new_n)

@@ -1,6 +1,16 @@
 """Training driver under fault-tolerant recovery (``repro.launch.train`` is
 the reference).
 
+    # the in-process loop on the card (real train step, TCE checkpoints),
+    # and the same resumed from its freshest checkpoint:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
+        --reduced --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
+        --reduced --steps 60 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt --resume
+    # the same on the CPU:
+    PYTHONPATH=src python -m repro_torch.launch.train --tiny --steps 20 \
+        --ckpt-every 10 --device cpu
+
     # real multi-process ranks under the TOL/planner recovery loop, with
     # scripted SIGKILLs (the fault-tolerance capstone), on the card:
     PYTHONPATH=src python -m repro_torch.launch.train --substrate process \
@@ -12,20 +22,30 @@ the reference).
         --inject-kills 9:1,17:0 --device cpu
 
 The flags are the reference's, plus ``--device`` (default ``cuda``; without
-a card the run fails before any rank starts). ``--substrate process`` hands
+a card the run fails before any rank starts or any checkpoint is written).
+``--substrate single`` (the default) is the in-process loop: the real train
+step on ``--device``, checkpointing through one local TCE rank
+(``TCEConfig(n_nodes=1, backup=False)``: there is no ring to back up to),
+resuming from the freshest checkpoint with ``--resume``. It trains in
+deterministic mode, so a resumed run repeats the uninterrupted one bit for
+bit; it exits 1 unless every checkpoint it took became durable (the
+reconciler quiesced and logged no error). ``--substrate process`` hands
 the run to the shared recovery driver
 (:func:`repro_torch.substrate.driver.run_protected`) over a
 :class:`~repro_torch.substrate.process.ProcessSubstrate`; as in the
 reference, the rank workers always train the reduced arch, so ``--reduced``
-changes nothing there. The ``single`` (the default, as in the reference) and
-``sim`` substrates are not ported yet and exit 2 with the ROADMAP item that
-brings them. Exit code follows the shared convention: 0 iff the run
-completed.
+changes nothing there. The ``sim`` substrate is not ported yet and exits 2
+with the ROADMAP item that brings it. Exit code follows the shared
+convention: 0 iff the run completed.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import sys
+import tempfile
+import time
 
 from repro_torch import DeviceUnavailable
 from repro_torch.cli import (EXIT_FAILURE, EXIT_OK, EXIT_USAGE, base_parser,
@@ -39,9 +59,16 @@ SUBSTRATES = {
 
 #: the ROADMAP item that brings each substrate the port lacks
 NOT_PORTED = {
-    "single": "it needs the TCE engine (ROADMAP queue 1, item 2)",
     "sim": "it needs SimSubstrate (ROADMAP queue 1, item 3)",
 }
+
+
+def scale_config(cfg, args):
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    return cfg
 
 
 def build_argparser():
@@ -64,7 +91,8 @@ def build_argparser():
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--ckpt-dir", default=None,
-                    help="checkpoint directory (default: a fresh tempdir)")
+                    help="checkpoint directory (default: repro_ckpt in the "
+                         "temp dir for single mode, a fresh tempdir otherwise)")
     ap.add_argument("--codec", default="raw",
                     help="TCE persist codec (raw|zlib|int8)")
     ap.add_argument("--resume", action="store_true",
@@ -82,8 +110,8 @@ def build_argparser():
                     help="scripted stragglers 'STEP:RANK[:SECONDS],...' — "
                          "SIGSTOP/SIGCONT a live rank (process/sim modes)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                    help="where the ranks and the error checks run "
-                         "(default: cuda)")
+                    help="where training (single) or the ranks and the "
+                         "error checks (process) run (default: cuda)")
     return ap
 
 
@@ -95,6 +123,87 @@ def _apply_tiny(args) -> None:
         args.seq = min(args.seq, 16)
 
 
+# --------------------------------------------------------------------------- #
+def run_single(args) -> int:
+    """The in-process loop: real step fn, local TCE rank."""
+    import torch
+
+    from repro_torch import deterministic, resolve_device
+    from repro_torch.configs import get_config
+    from repro_torch.core.tce import DiskStore, TCEConfig, TCEngine
+    from repro_torch.core.tce.engine import unflatten_like
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.train import (AdamConfig, TrainConfig, init_train_state,
+                                   make_train_step)
+
+    try:
+        device = resolve_device(args.device)
+    except DeviceUnavailable as e:
+        print(f"error: DeviceUnavailable: {e}", file=sys.stderr)
+        return EXIT_FAILURE
+    deterministic(device)
+    cfg = scale_config(get_config(args.arch), args)
+    opt_cfg = AdamConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
+                         decay_steps=args.steps)
+    print(f"arch={cfg.name} params={cfg.n_params():,} device={device}")
+
+    state = init_train_state(cfg, opt_cfg, seed=args.seed, device=device)
+    data = SyntheticLMData(cfg.vocab_size, args.seq, args.batch, args.seed)
+
+    # one local rank, no ring: there is no second machine to back up to
+    root = args.ckpt_dir or os.path.join(tempfile.gettempdir(), "repro_ckpt")
+    tce = TCEngine(TCEConfig(n_nodes=1, backup=False, codec=args.codec),
+                   DiskStore(root, device=device))
+    start = 0
+    if args.resume:
+        try:
+            ck_step, flat = tce.restore()
+            state = unflatten_like(state, flat)
+            start = int(ck_step)
+            data.restore(type(data.state)(start))
+            print(f"resumed from step {start}")
+        except FileNotFoundError:
+            print("no checkpoint found; starting fresh")
+
+    step_fn = make_train_step(cfg, opt_cfg, TrainConfig())
+    t0 = time.time()
+    final_loss = None
+    for step in range(start, args.steps):
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in data.batch_at(step).items()}
+        state, metrics = step_fn(state, batch)
+        final_loss = float(metrics["loss"])
+        if (step + 1) % args.log_every == 0 or step == start:
+            print(f"step {step+1:5d} loss={final_loss:.4f} "
+                  f"gnorm={float(metrics['grad_norm']):.3f} "
+                  f"lr={float(metrics['lr']):.2e} "
+                  f"({(time.time()-t0)/(step-start+1):.2f}s/step)")
+        if (step + 1) % args.ckpt_every == 0:
+            h = tce.save(step + 1, state)
+            print(f"  tce.save(step={step+1}) "
+                  f"cache={h.cache_wall_s*1e3:.0f}ms "
+                  f"(async persist in background)")
+    durable = tce.reconciler.quiesce(60)
+    tce.close()
+    errors = list(tce.reconciler.errors)
+    if not durable or errors:
+        # the reconciler keeps going past a failed persist; the run must not
+        print(f"error: checkpoints not durable (quiesced: {durable}, "
+              f"reconciler errors: {errors})", file=sys.stderr)
+        return EXIT_FAILURE
+    if args.json or args.out:
+        from repro_torch.report import finalize
+        rep = finalize({"completed": True, "steps_done": args.steps,
+                        "total_steps": args.steps, "arch": cfg.name,
+                        "final_loss": final_loss,
+                        "measured": {"wall_s": round(time.time() - t0, 3)}},
+                       engine="train", scenario="single", seed=args.seed)
+        write_reports([rep], json_path=args.json, out_dir=args.out)
+    print("done.")
+    return EXIT_OK
+
+
+# --------------------------------------------------------------------------- #
 def run_protected_mode(args) -> int:
     """The process substrate under the shared recovery driver."""
     from repro_torch.substrate import build_substrate
@@ -146,6 +255,8 @@ def main(argv=None) -> int:
         print(f"error: --substrate {args.substrate} is not ported yet: "
               f"{NOT_PORTED[args.substrate]}", file=sys.stderr)
         return EXIT_USAGE
+    if args.substrate == "single":
+        return run_single(args)
     return run_protected_mode(args)
 
 

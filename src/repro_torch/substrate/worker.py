@@ -64,16 +64,6 @@ def _hijack_stdout():
     return proto
 
 
-def _deterministic(device: str) -> None:
-    """Bit-for-bit repeatable training on the card (and on the CPU)."""
-    if device == "cuda":
-        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    import torch
-    torch.use_deterministic_algorithms(True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--spec", required=True, help="JSON worker spec")
@@ -82,11 +72,10 @@ def main() -> int:
 
     proto = _hijack_stdout()
     device_name = spec.get("device", "cuda")
-    _deterministic(device_name)
 
     import torch
 
-    from repro_torch import resolve_device
+    from repro_torch import deterministic, resolve_device
     from repro_torch.configs import get_config
     from repro_torch.core.tce import DiskStore
     from repro_torch.core.tce.engine import flatten_pytree, unflatten_like
@@ -95,6 +84,7 @@ def main() -> int:
     from repro_torch.data import SyntheticLMData
     from repro_torch.train import AdamConfig, TrainConfig, init_train_state, make_train_step
 
+    deterministic(device_name)
     device = resolve_device(device_name)
     rank = int(spec["rank"])
     n_ranks = int(spec["n_ranks"])
@@ -260,9 +250,20 @@ class RankProcess:
             return False
 
     def recv(self) -> Optional[dict]:
-        """Blocking read of one protocol line; None = worker died (EOF)."""
+        """Blocking read of one protocol line; None = worker died (EOF).
+
+        EOF comes while the dying worker still tears itself down, before it
+        can be reaped, so it is reaped here: ``alive`` then agrees with what
+        the channel said, and a respawn decided right after sees it dead."""
         line = self.proc.stdout.readline()
-        return json.loads(line) if line else None
+        if line:
+            return json.loads(line)
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        return None
 
     def call(self, obj: dict) -> Optional[dict]:
         return self.recv() if self.send(obj) else None

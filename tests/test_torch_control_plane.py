@@ -1,7 +1,7 @@
 """The port's control plane against the reference's: the copied modules
 (simulation kernel, recovery planner, report and CLI conventions, the TOL
-FSM, lease server and cluster view, the Substrate protocol and the recovery
-driver) are the reference's source with the import prefix rewritten, and the
+FSM, lease server and cluster view, the Substrate protocol, the recovery
+driver, and the checkpoint engine's arena, cache, fabric and theory model) are the reference's source with the import prefix rewritten, and the
 TOL checks that run on a device (burn-in, collective) hold on the CPU.
 """
 import difflib
@@ -36,6 +36,18 @@ COPIES = {
     "core/tol/fsm.py": ((), ()),
     "core/tol/server.py": ((), ()),
     "core/tol/cluster.py": ((), ()),
+    "core/tce/arena.py": ((), ()),
+    "core/tce/model.py": ((), ()),
+    "core/tce/transport.py": ((), ()),
+    # the cache names a leaf's dtype as the codec does (the bf16 carrier)
+    "core/tce/cache.py": (
+        ("                    stored[path] = StoredShard(spec, sid, n, str(data.dtype),",) * 2
+        + ("                    arr = np.array(buf.view(np.dtype(ss.dtype))).reshape(ss.shape)",
+           "                    arr = buf.view(np.dtype(ss.dtype)).reshape(ss.shape)"),
+        ("from .codec import dtype_name, np_dtype",)
+        + ("                    stored[path] = StoredShard(spec, sid, n, dtype_name(data.dtype),",) * 2
+        + ("                    arr = np.array(buf.view(np_dtype(ss.dtype))).reshape(ss.shape)",
+           "                    arr = buf.view(np_dtype(ss.dtype)).reshape(ss.shape)")),
     # the protocol's docstring names the ranks' framework; it gains device
     "substrate/base.py": (
         ("  JAX ranks (``python -m repro.substrate.worker`` subprocesses running the",),

@@ -128,7 +128,7 @@ def test_launcher_without_a_card_fails_before_any_rank(tmp_path, monkeypatch, ca
     assert not (tmp_path / "ckpt").exists()
 
 
-@pytest.mark.parametrize("substrate, item", [("single", "item 2"), ("sim", "item 3")])
+@pytest.mark.parametrize("substrate, item", [("sim", "item 3")])
 def test_launcher_names_the_item_that_brings_a_substrate(substrate, item, capsys):
     assert train_cli.main(["--substrate", substrate, "--device", "cpu"]) == 2
     assert item in capsys.readouterr().err
