@@ -36,16 +36,26 @@ random weights:
   on the card, killed in the middle of a save and restored, at its reduced
   default;
 * the TRANSOM recovery loop (``repro_torch.substrate.driver.run_protected``
-  over ``ProcessSubstrate(device="cuda")``): two rank processes on the card
-  train 24 steps through two SIGKILLs, TOL's error checks run on the card,
-  the killed ranks' nodes are evicted and spares claimed, and the merged
-  loss curve equals an uninterrupted run's bit for bit. The ranks run the
-  reference's process-mode size (the reduced arch, 1 layer) through plain
-  attention and the ``raw`` codec, so this phase launches no hand kernel;
+  over ``ProcessSubstrate(device="cuda")``, the TEE on): two rank processes
+  on the card train 24 steps through two SIGKILLs, the streaming TEE scores
+  each dead rank, TOL's error checks run on the card, the killed ranks'
+  nodes are evicted and spares claimed, and the merged loss curve equals an
+  uninterrupted run's bit for bit; then four ranks, one SIGSTOPped, which
+  the TEE names. The ranks run the reference's process-mode size (the
+  reduced arch, 1 layer) through plain attention and the ``raw`` codec, so
+  this phase launches no hand kernel;
 * the launcher's ``--substrate single`` in-process (reduced arch, 30 steps,
   a checkpoint every 10): resumed after the chain-safe delete of its last
   step to the same final loss bit for bit, then with the ``int8`` codec,
-  whose persists and restore launch the quant kernels from the reconciler.
+  whose persists and restore launch the quant kernels from the reconciler;
+* the paper's closed loop (``TransomOperator.run_job``, TOL + TEE + TCE):
+  mamba2-130m at full width and depth in float32 trains 28 steps through
+  node faults at steps 13 and 27 on a 4-node modelled cluster, with a TCE
+  save every 5 steps: once with the ``raw`` codec (its final params held to
+  an uninterrupted run's), once without faults, and once with ``int8``
+  (bf16 Adam moments), whose persists, backups and restores quantise and
+  dequantise through the hand-written kernels, each restored shard held to
+  the plain codec.
 
 The train phase also takes two steps that say where a step's time goes: one
 with the gradients and the AdamW update timed apart (through the trainer's
@@ -70,6 +80,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -1411,40 +1422,54 @@ def phase_worker():
 CAPSTONE_KW = dict(n_ranks=2, n_spares=2, seed=0, total_steps=24, batch=2, seq=16, lr=3e-4)
 CAPSTONE_CFG = dict(total_steps=24, ckpt_every=6, seed=0)
 CAPSTONE_KILLS = ((9, 1), (17, 0))
+# the stalled-rank run (tests/test_substrate.py:238-262): four ranks, since
+# slow-rank attribution is consensus-based and needs a healthy majority;
+# rank 1 SIGSTOPped for 2 s at step 9
+STALL_RANKS, STALL = 4, (9, 1, 2.0)
 
 
 def phase_capstone():
     """The TRANSOM recovery loop on the card: two torch rank processes, each
-    with its own CUDA context, train under the port's ``run_protected``; ranks
-    1 and 0 are SIGKILLed at steps 9 and 17, TOL checks and evicts their
-    nodes, claims spares and restores from the TCE checkpoint; the merged loss
-    curve must equal an uninterrupted run's bit for bit. The ranks train the
-    reduced arch (1 layer) through the plain attention and checkpoint with the
-    ``raw`` codec, as the reference's process ranks do: no hand-written kernel
-    runs on this path."""
+    with its own CUDA context, train under the port's ``run_protected`` with
+    the TEE on; ranks 1 and 0 are SIGKILLed at steps 9 and 17, the streaming
+    TEE scores each dead rank, TOL checks and evicts their nodes, claims
+    spares and restores from the TCE checkpoint; the merged loss curve must
+    equal an uninterrupted run's bit for bit. Then four ranks, one of them
+    SIGSTOPped: no restart, and the TEE names the stalled rank. The ranks
+    train the reduced arch (1 layer) through the plain attention and
+    checkpoint with the ``raw`` codec, as the reference's process ranks do:
+    no hand-written kernel runs on this path."""
     from repro_torch.core.tol import error_check_tasks
-    from repro_torch.substrate.driver import DriveConfig, KillSpec, run_protected
+    from repro_torch.substrate.driver import DriveConfig, KillSpec, StallSpec, run_protected
     from repro_torch.substrate.process import ProcessSubstrate
 
     checks = error_check_tasks(device="cuda")
     check(all(c.ok for c in checks), f"error checks on the card: {checks}")
     runs, spawns, per_run = {}, [], {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_capstone_") as root:
-        for name, kills in (("faulty", CAPSTONE_KILLS), ("clean", ())):
-            sub = ProcessSubstrate(ckpt_dir=str(Path(root) / name), device="cuda", **CAPSTONE_KW)
+        for name, kills, stalls, kw in (
+                ("faulty", CAPSTONE_KILLS, (), {}),
+                ("clean", (), (), {}),
+                ("stall", (), (STALL,), {"n_ranks": STALL_RANKS, "n_spares": 0})):
+            sub = ProcessSubstrate(ckpt_dir=str(Path(root) / name), device="cuda",
+                                   **dict(CAPSTONE_KW, **kw))
+            check(sub.tee is not None, "the process substrate runs without its TEE")
             try:
                 runs[name] = run_protected(sub, DriveConfig(scenario="capstone", **CAPSTONE_CFG),
-                                           tuple(KillSpec(s, r) for s, r in kills))
+                                           tuple(KillSpec(s, r) for s, r in kills),
+                                           tuple(StallSpec(*st) for st in stalls))
             finally:
                 sub.close()
             spawns += sub.spawn_log
             per_run[name] = len(sub.spawn_log)
-    faulty, clean = runs["faulty"], runs["clean"]
+    faulty, clean, stall = runs["faulty"], runs["clean"], runs["stall"]
     check(faulty["completed"] and clean["completed"], "a capstone run did not complete")
     check(faulty["restarts"] == {"inplace": 0, "resched": 2},
           f"restarts {faulty['restarts']}, want 2 reschedules")
     check(faulty["decisions"]["by_decision"] == {"claim_spare": 2},
           f"decisions {faulty['decisions']['by_decision']}, want 2 spare claims")
+    check(faulty["tee_verdicts"] >= len(CAPSTONE_KILLS),
+          f"{faulty['tee_verdicts']} TEE verdicts for {len(CAPSTONE_KILLS)} dead ranks")
     check(clean["restarts"] == {"inplace": 0, "resched": 0}, f"clean run restarted: {clean}")
     check([e[0] for e in faulty["losses"]] == list(range(1, 25)),
           f"merged curve steps {[e[0] for e in faulty['losses']]}")
@@ -1452,6 +1477,15 @@ def phase_capstone():
     check(faulty["losses"] == clean["losses"], "the merged curve differs from the clean run's")
     check(all(s["device"] == "cuda:0" for s in spawns),
           f"ready lines name {sorted({s['device'] for s in spawns})}, want cuda:0")
+    # the stalled rank (tests/test_substrate.py's own checks)
+    check(stall["completed"] and stall["restarts"] == {"inplace": 0, "resched": 0},
+          f"stall run: completed {stall['completed']}, restarts {stall['restarts']}")
+    att = stall["measured"]["stall_attribution"]
+    check(len(att) == 1 and att[0]["stalled_ranks"] == [STALL[1]], f"stall attribution {att}")
+    a = att[0]
+    check(a["slowest_rank"] == STALL[1] and a["slowdown"] > 1.3 and a["anomalous"]
+          and STALL[1] in a["attributed_ranks"] and 0.0 < a["confidence"] <= 1.0,
+          f"stall attribution {a}")
     wall = {k: r["measured"]["wall_s"] for k, r in runs.items()}
     out = {"phase": "capstone", "settings": dict(CAPSTONE_KW, **CAPSTONE_CFG),
            "kills": [list(k) for k in CAPSTONE_KILLS],
@@ -1461,10 +1495,461 @@ def phase_capstone():
            "spawn_s_median": statistics.median(s["spawn_s"] for s in spawns),
            "lost_steps": faulty["lost_steps"], "restarts": faulty["restarts"],
            "decisions": faulty["decisions"]["by_decision"],
+           "tee_verdicts": {k: r["tee_verdicts"] for k, r in runs.items()},
            "final_loss": faulty["final_loss"], "bit_identical": True,
+           "stall": {"ranks": STALL_RANKS, "spec": list(STALL), "attribution": a},
            "timeline_digest": {k: r["timeline_digest"] for k, r in runs.items()}}
     emit(out)
     return out
+
+
+# The closed loop (tests/test_system.py::test_closed_loop_recovers_real_lm_training
+# at full size): mamba2-130m at full width and depth in float32, 4 x 1024
+# tokens a step, under TransomOperator over a 4-node modelled cluster with 4
+# spares, a TCE checkpoint every 5 steps, node faults at steps 13 and 27.
+# 28 steps, not the reference's 40: one past the last fault. The int8
+# run's saves take ~55 s each on the reconciler's host thread (zlib of the
+# lossless moments), and 40 steps would take the script past ~900 s.
+LOOP_ARCH = "mamba2-130m"
+LOOP_OPT = dict(lr=1e-3, warmup_steps=2, decay_steps=60, grad_clip=1.0)
+# The int8 run keeps its Adam moments in bf16 (AdamConfig.moment_dtype). The
+# codec keeps every optimizer leaf lossless through zlib, once for the
+# persist and once for the backup, on the reconciler's one host thread;
+# float32 moments, two thirds of the state, make that 2.7 GB of zlib a save,
+# more than a minute at the host's rate (the phase measures it): past the
+# engine's 60 s window of pipelined durability, so saves pile up behind the
+# reconciler and a fault falls back more than the reference's two intervals.
+# (int8 moments, a quarter of the bytes, make this training diverge.)
+LOOP_INT8_MOMENTS = "bfloat16"
+LOOP_BATCH, LOOP_SEQ, LOOP_NODES, LOOP_SPARES = 4, 1024, 4, 4
+LOOP_JOB = dict(total_steps=28, ckpt_every=5, n_sim_nodes=LOOP_NODES)
+# The engine's pipelined durability: save(N) first waits for save(N-1) to
+# be persisted and backed up, which bounds a fault's loss to two intervals
+# (the reference test's lost-steps bound) only while the wait outlasts a
+# save's reconcile. The default 60 s is within 10% of what an int8 save
+# takes here, so the wait is the script's own TCE wait (TCE_WAIT_S).
+LOOP_DURABLE_S = TCE_WAIT_S
+LOOP_FAULTS = {13: ("node_hw", 1), 27: ("network", 2)}
+# recovered vs uninterrupted final params, rtol = atol (tests/test_system.py:82-85)
+LOOP_PARAM_TOL = 1e-6
+# what the phase's last line repeats of each run's own line
+LOOP_SUMMARY = ("moment_dtype", "wall_s", "steps_per_s", "lost_steps", "resumed_from",
+                "fault_to_running_s", "modeled_downtime_s", "restore_sources", "tee_verdicts",
+                "decisions", "launches")
+
+
+def _parse_resumes(report):
+    """The step each recovery resumed from (the FSM's ``resumed from step N``)."""
+    return [int(why.rsplit(" ", 1)[1]) for _t, s, why in report.state_history
+            if s == "running" and why.startswith("resumed from step")]
+
+
+def _tee_polls(resumes, faults, total, every):
+    """The operator's TEE count on a schedule: one per fault, and one per
+    executed step that ends on a multiple of ``every``, replays included."""
+    polls, start = len(faults), 0
+    for end, resume in zip(sorted(faults) + [total], list(resumes) + [None]):
+        polls += sum(1 for s in range(start + 1, end + 1) if s % every == 0)
+        start = resume
+    return polls
+
+
+def phase_closed_loop(qb_ops, qb_ref):
+    """The paper's closed loop on the card: ``TransomOperator.run_job`` trains
+    mamba2-130m at full width and depth through two node faults (TOL evicts,
+    claims spares; the TEE attributes; TCE restores), three times from one
+    exported set of weights: with the ``raw`` codec, without faults, and with
+    the ``int8`` codec, whose persists, backups and restores quantise and
+    dequantise through the hand-written kernels from the reconciler's thread."""
+    from repro_torch import deterministic
+    from repro_torch.configs import get_config
+    from repro_torch.core.tce import (DiskStore, TCEConfig, TCEngine, crc32_stream,
+                                      flatten_pytree, shard_state, unflatten_like)
+    from repro_torch.core.tce import reconciler as rec_mod
+    from repro_torch.core.tce import store as store_mod
+    from repro_torch.core.tee import TEEService
+    from repro_torch.core.tol import (ClusterSim, JobConfig, JobState, TransomOperator,
+                                      TransomServer)
+    from repro_torch.core.tol.cluster import NodeState
+    from repro_torch.core.tol.orchestrator import SimulatedFault
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.substrate.sim import _fitted_tee
+    from repro_torch.train import AdamConfig, TrainConfig, init_train_state, make_train_step
+
+    deterministic("cuda")
+    cfg = dataclasses.replace(get_config(LOOP_ARCH), compute_dtype="float32")
+    opts = {"float32": AdamConfig(**LOOP_OPT),
+            LOOP_INT8_MOMENTS: AdamConfig(**LOOP_OPT, moment_dtype=LOOP_INT8_MOMENTS)}
+    data = SyntheticLMData(cfg.vocab_size, LOOP_SEQ, LOOP_BATCH, seed=SEED)
+    inner = {k: make_train_step(cfg, o, TrainConfig(attn_impl="chunked")) for k, o in opts.items()}
+    templates = {k: init_train_state(cfg, o, seed=SEED, device="cuda") for k, o in opts.items()}
+    init_flat = flatten_pytree(templates["float32"])   # the one exported set of weights
+    # each run's initial state: the exported params, zero moments of its dtype
+    init_flats = {k: {**flatten_pytree(t), **{p: a for p, a in init_flat.items()
+                                              if p.startswith("params/")}}
+                  for k, t in templates.items()}
+    state_gb = sum(a.nbytes for a in init_flat.values()) / 1e9
+    per_rank = [sum(d.nbytes for _sp, d in sh.values()) for sh in shard_state(init_flat, LOOP_NODES)]
+    # each node holds two cycles of its own shards and of its neighbour's
+    # backup, plus a page of rounding per leaf
+    mem_limit = max(2 * (per_rank[r] + per_rank[r - 1]) for r in range(LOOP_NODES)) \
+        + 2 * 4096 * 2 * len(init_flat)
+    # the leaves the int8 codec quantises (float, off the lossless globs)
+    int8_paths = int8_paths_of({p: (None, a) for p, a in init_flat.items()},
+                               TCEConfig().lossless_paths)
+    tee = TEEService(_fitted_tee(n_ranks=LOOP_NODES))   # fitted once a process
+    job = JobConfig(**LOOP_JOB)
+
+    # every int8 encode and decode of the codec, by caller: each must launch
+    # its kernel exactly once
+    codec_calls = {"encode": 0, "decode": 0}
+
+    def counting(mod):
+        enc, dec = mod.encode_shard, mod.decode_shard
+
+        def encode_shard(*a, **k):
+            out = enc(*a, **k)
+            codec_calls["encode"] += out[0] == "int8"
+            return out
+
+        def decode_shard(encoding, *a, **k):
+            codec_calls["decode"] += encoding == "int8"
+            return dec(encoding, *a, **k)
+        return enc, dec, encode_shard, decode_shard
+
+    def run(name, codec, state0, step_fn, toy=False):
+        """One ``run_job`` over the fault schedule, instrumented at the
+        operator's seams (save, restore, quiesce, FSM, TEE); ``toy``: on the
+        CPU, each step waiting for the reconciler first, so that no fault
+        races a save."""
+        device = "cpu" if toy else "cuda"
+        root = tempfile.mkdtemp(prefix=f"chip_smoke_loop_{name}_")
+        cluster = ClusterSim(n_nodes=LOOP_NODES, n_spares=LOOP_SPARES)
+        tce = TCEngine(TCEConfig(n_nodes=LOOP_NODES, codec=codec,
+                                 durability_timeout_s=LOOP_DURABLE_S,
+                                 **({} if toy else {"mem_limit_bytes": mem_limit})),
+                       DiskStore(root, device=device))
+        op = TransomOperator(TransomServer(), cluster, tce, tee, device=device)
+        rec = tce.reconciler
+        rec_run = {"saves": [], "restores": [], "quiesce": [], "faults": [], "verdicts": [],
+                   "running_after_fault_s": [], "saved": {}, "restored": [],
+                   "legs": {"persist": [], "backup": []}}
+        fired = set()
+
+        def hook(step):
+            if step in LOOP_FAULTS and step not in fired:
+                fired.add(step)
+                cat, rank = LOOP_FAULTS[step]
+                node = op.launchers[rank].node
+                cluster.nodes[node].state = NodeState.FAILED
+                cluster.nodes[node].fail_category = cat
+                rec_run["faults"].append({"step": step, "rank": rank, "category": cat,
+                                          "t": time.perf_counter(),
+                                          "saves_in_flight": rec._pending()})
+                raise SimulatedFault(cat, rank)
+
+        to = op.fsm.to
+
+        def fsm_to(state, reason=""):
+            to(state, reason)
+            if state == JobState.RUNNING and rec_run["faults"] and \
+                    len(rec_run["running_after_fault_s"]) < len(rec_run["faults"]):
+                rec_run["running_after_fault_s"].append(
+                    time.perf_counter() - rec_run["faults"][-1]["t"])
+        op.fsm.to = fsm_to
+
+        save, restore, quiesce, detect = tce.save, tce.restore, rec.quiesce, tee.detect_task
+
+        def timed_save(step, state, **kw):
+            t0 = time.perf_counter()
+            flat = flatten_pytree(state)
+            h = save(step, flat, **kw)
+            rec_run["saves"].append({"step": step, "stall_s": time.perf_counter() - t0,
+                                     "cache_wall_s": h.cache_wall_s,
+                                     "t_s": time.perf_counter() - t_run})
+            if codec == "int8":        # what a restore of this step is held to
+                crcs = {(r, p): crc32_stream(d) for r, sh in enumerate(
+                    shard_state({p: a for p, a in flat.items() if p not in int8_paths},
+                                LOOP_NODES)) for p, (_sp, d) in sh.items()}
+                rec_run["saved"].setdefault(step, []).append(
+                    ({p: a for p, a in flat.items() if p in int8_paths}, crcs))
+            return h
+
+        def timed_restore(step=None, **k):
+            if step is not None:      # the engine's own try of one candidate step
+                return restore(step=step, **k)
+            t0 = time.perf_counter()
+            got_step, flat = restore(**k)
+            rec_run["restores"].append({"step": int(got_step),
+                                        "wall_s": time.perf_counter() - t0,
+                                        "sources": dict(tce.stats["restore_sources"])})
+            if codec == "int8":       # held to the saved copy before training moves on
+                rec_run["restored"].append(_check_loop_restore(
+                    int(got_step), flat, rec_run["saved"].get(int(got_step)),
+                    rec_run["restores"][-1]["sources"], qb_ref, crc32_stream))
+            return got_step, flat
+
+        def timed_quiesce(timeout=30.0):
+            t0 = time.perf_counter()
+            ok = quiesce(timeout)
+            rec_run["quiesce"].append({"timeout_s": timeout, "ok": ok,
+                                       "wall_s": time.perf_counter() - t0})
+            return ok
+
+        def recorded_detect(trace):
+            v = detect(trace)
+            rec_run["verdicts"].append({"anomalous": bool(v.anomalous),
+                                        "bad_ranks": list(v.bad_ranks),
+                                        "label": trace.label})
+            return v
+
+        def settled(state, step):
+            quiesce(10)
+            return step_fn(state, step)
+
+        if not toy:
+            tce.save, tce.restore, rec.quiesce = timed_save, timed_restore, timed_quiesce
+            # the wall time of each reconciler leg, per rank and step (a
+            # timing wrapper only: each leg runs as the library runs it)
+            for leg in ("persist", "backup"):
+                def timed_leg(cache, step, shards, digmap, _orig=getattr(rec, f"_{leg}"),
+                              _rows=rec_run["legs"][leg]):
+                    t0 = time.perf_counter()
+                    _orig(cache, step, shards, digmap)
+                    _rows.append({"step": step, "rank": cache.rank,
+                                  "wall_s": time.perf_counter() - t0,
+                                  "t_s": t0 - t_run})
+                setattr(rec, f"_{leg}", timed_leg)
+        tee.detect_task = recorded_detect
+        t0 = t_run = time.perf_counter()
+        try:
+            report, final = op.run_job(job, state0, settled if toy else step_fn,
+                                       fault_hook=hook)
+            wall = time.perf_counter() - t0
+            durable = quiesce(120)
+            check(durable and rec.errors == [],
+                  f"{name}: reconciler quiesced {durable}, errors {rec.errors}")
+        finally:
+            del tee.detect_task
+            tce.close()
+            shutil.rmtree(root, ignore_errors=True)
+        return report, final, wall, rec_run
+
+    # the count the card's runs are held to: the same operator and schedule
+    # on the CPU over a numpy step
+    toy, _, _, _ = run("toy", "raw", np.zeros((4, 4), np.float32),
+                       lambda s, i: s + np.float32(1.0), toy=True)
+    check(toy.completed and toy.restarts_resched == 2, f"toy run: {toy}")
+
+    def card_step(losses, moments):
+        def step_fn(state, step):
+            batch = {k: torch.from_numpy(v).to("cuda") for k, v in data.batch_at(step).items()}
+            state, metrics = inner[moments](state, batch)
+            losses.append((step, float(metrics["loss"])))
+            return state
+        return step_fn
+
+    out = {"phase": "closed_loop", "arch": LOOP_ARCH, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "n_params": cfg.n_params(), "compute_dtype": "float32",
+           "batch": LOOP_BATCH, "seq": LOOP_SEQ, "job": LOOP_JOB, "nodes": LOOP_NODES,
+           "spares": LOOP_SPARES, "faults": {str(k): list(v) for k, v in LOOP_FAULTS.items()},
+           "state_gb": state_gb, "mem_limit_gb": mem_limit / 1e9, "runs": {}}
+    reports, finals, losses = {}, {}, {}
+    try:
+        for name, codec in (("raw", "raw"), ("clean", None), ("int8", "int8")):
+            moments = LOOP_INT8_MOMENTS if codec == "int8" else "float32"
+            losses[name] = []
+            step_fn = card_step(losses[name], moments)
+            state0 = unflatten_like(templates[moments], init_flats[moments])
+            if codec is None:          # the uninterrupted run
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state = state0
+                for s in range(LOOP_JOB["total_steps"]):
+                    state = step_fn(state, s)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                finals[name] = state
+                out["runs"][name] = {"wall_s": wall, "steps": len(losses[name]),
+                                     "steps_per_s": len(losses[name]) / wall,
+                                     "final_loss": losses[name][-1][1]}
+                emit({"phase": "closed_loop_run", "run": name, **out["runs"][name]})
+                continue
+            if codec == "int8":
+                qb_ops.LAUNCHES.update(quantize=0, dequantize=0)
+                patches = [counting(m) for m in (rec_mod, store_mod)]
+                for m, (_e, _d, enc, dec) in zip((rec_mod, store_mod), patches):
+                    m.encode_shard, m.decode_shard = enc, dec
+                codec_calls.update(encode=0, decode=0)
+            try:
+                report, final, wall, inst = run(name, codec, state0, step_fn)
+            finally:
+                if codec == "int8":
+                    launches = dict(qb_ops.LAUNCHES)
+                    for m, (e, d, _enc, _dec) in zip((rec_mod, store_mod), patches):
+                        m.encode_shard, m.decode_shard = e, d
+            reports[name], finals[name] = report, final
+            resumes = _parse_resumes(report)
+            row = {"moment_dtype": moments, "wall_s": wall, "steps": len(losses[name]),
+                   "steps_per_s": len(losses[name]) / wall,
+                   "final_loss": losses[name][-1][1], "completed": report.completed,
+                   "restarts": {"inplace": report.restarts_inplace,
+                                "resched": report.restarts_resched},
+                   "evicted_nodes": report.evicted_nodes, "lost_steps": report.lost_steps,
+                   "resumed_from": resumes,
+                   "mean_restart_s_modeled": report.mean_restart_s,
+                   "modeled_downtime_s": report.modeled_downtime_s,
+                   "restore_sources": report.restore_sources,
+                   "tee_verdicts": report.tee_verdicts, "tee": inst["verdicts"],
+                   "decisions": [d["decision"] for d in report.decisions],
+                   "saves": inst["saves"], "restores": inst["restores"],
+                   "quiesce": inst["quiesce"],
+                   "faults": [{k: v for k, v in f.items() if k != "t"} for f in inst["faults"]],
+                   "fault_to_running_s": inst["running_after_fault_s"]}
+            # the reference test's assertions (tests/test_system.py:72-78)
+            check(report.completed, f"{name}: the job did not complete")
+            check(report.restarts_resched == 2 and report.restarts_inplace == 0,
+                  f"{name}: restarts {row['restarts']}, want 2 reschedules")
+            check(len(report.evicted_nodes) == 2, f"{name}: evicted {report.evicted_nodes}")
+            check(report.lost_steps <= 2 * (2 * LOOP_JOB["ckpt_every"]),
+                  f"{name}: lost {report.lost_steps} steps")
+            check(0 < report.mean_restart_s < 15 * 60,
+                  f"{name}: mean restart {report.mean_restart_s} s")
+            check([v["anomalous"] for v in inst["verdicts"]] == [True, True],
+                  f"{name}: TEE verdicts {inst['verdicts']}")
+            check(all(math.isfinite(v) for _s, v in losses[name]), f"{name}: non-finite loss")
+            # the TEE's count, held to the toy run's; a restore that fell back
+            # one interval further replays (and polls) more
+            fell_back = [(f, r, t) for f, r, t in zip(sorted(LOOP_FAULTS), resumes,
+                                                      _parse_resumes(toy)) if r != t]
+            want_polls = _tee_polls(resumes, LOOP_FAULTS, LOOP_JOB["total_steps"],
+                                    job.tee_every)
+            check(report.tee_verdicts == (toy.tee_verdicts if not fell_back else want_polls),
+                  f"{name}: tee_verdicts {report.tee_verdicts}, toy {toy.tee_verdicts}, "
+                  f"fell back {fell_back}")
+            row["tee_verdicts_toy"] = toy.tee_verdicts
+            row["fell_back"] = [{"fault_step": f, "resumed_from": r, "toy_resumed_from": t}
+                                for f, r, t in fell_back]
+            if codec == "int8":
+                row.update(_check_loop_int8(inst, report, launches, codec_calls, losses[name]))
+            row["legs"] = {leg: {"n": len(rows), "wall_s": sum(r["wall_s"] for r in rows),
+                                 "max_s": max((r["wall_s"] for r in rows), default=0.0)}
+                           for leg, rows in inst["legs"].items()}
+            out["runs"][name] = {k: row[k] for k in LOOP_SUMMARY if k in row}
+            emit({"phase": "closed_loop_run", "run": name, **row,
+                  "legs_timeline": inst["legs"]})
+
+        # the recovered run against the uninterrupted one
+        got, want = flatten_pytree(finals["raw"].params), flatten_pytree(finals["clean"].params)
+        worst = max(float(np.max(np.abs(got[p] - want[p]))) for p in want)
+        for p in want:
+            check(np.allclose(got[p], want[p], rtol=LOOP_PARAM_TOL, atol=LOOP_PARAM_TOL),
+                  f"raw run's {p} differs from the clean run's")
+        out["raw_vs_clean"] = {"max_abs_diff": worst, "bit_identical": worst == 0.0,
+                               "tol": LOOP_PARAM_TOL}
+        # what float32 moments would cost the int8 run: the host's zlib rate
+        # (the codec's level 1) on 32 MB of the largest trained moment leaf,
+        # times the moments' bytes a save takes through zlib (persist and
+        # backup)
+        moments = flatten_pytree(finals["raw"].opt)
+        path = max(moments, key=lambda k: moments[k].nbytes)
+        sample = np.ascontiguousarray(moments[path]).reshape(-1)[:1 << 23]
+        t0 = time.perf_counter()
+        packed = zlib.compress(memoryview(sample).cast("B"), 1)
+        rate = sample.nbytes / (time.perf_counter() - t0)
+        zlib_gb = 2 * sum(a.nbytes for a in moments.values()) / 1e9
+        out["float32_moments_zlib"] = {"leaf": f"opt/{path}", "mb": sample.nbytes / 1e6,
+                                       "mb_per_s": rate / 1e6, "ratio": len(packed) / sample.nbytes,
+                                       "gb_per_save": zlib_gb, "s_per_save": zlib_gb * 1e9 / rate}
+        del moments, sample, packed
+        # the int8 run decides as the raw run does
+        raw, q8 = reports["raw"], reports["int8"]
+        check([d["decision"] for d in q8.decisions] == [d["decision"] for d in raw.decisions],
+              f"decisions {q8.decisions} vs {raw.decisions}")
+        check((q8.restarts_inplace, q8.restarts_resched) ==
+              (raw.restarts_inplace, raw.restarts_resched), "int8 run's restarts differ")
+        check([s for _t, s, _w in q8.state_history] == [s for _t, s, _w in raw.state_history],
+              "int8 run's FSM states differ from the raw run's")
+        out["toy"] = {"tee_verdicts": toy.tee_verdicts, "lost_steps": toy.lost_steps,
+                      "resumed_from": _parse_resumes(toy)}
+        out["launches"] = out["runs"]["int8"]["launches"]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    emit(out)
+    return out
+
+
+def _check_loop_restore(step, flat, versions, sources, qb_ref, crc32_stream):
+    """One restore of the int8 run against the saves of its step (a replayed
+    step is saved again, and after an int8 restore its values differ): each
+    shard of an int8 leaf equal to a saved one byte for byte (a cache that
+    kept it) or to the plain codec's round trip of it on the card, bit for
+    bit; every other shard equal to a saved one (its crc32). Returns the
+    counts, and which save each rank's shards matched."""
+    from repro_torch.core.tce import shard_state
+
+    check(bool(versions), f"restore of step {step}: no saved copy kept")
+    int8_paths = set(versions[0][0])
+    got = shard_state(flat, LOOP_NODES)
+    saved = [shard_state(v[0], LOOP_NODES) for v in versions]
+    n_cache = n_codec = 0
+    matched = {}
+    for r, got_sh in enumerate(got):
+        for path, (_sp, arr) in got_sh.items():
+            if path not in int8_paths:
+                hits = [i for i, v in enumerate(versions) if v[1][(r, path)] == crc32_stream(arr)]
+                check(hits, f"restore of step {step}: rank {r} {path} matches no save")
+            else:
+                hits = [i for i, sv in enumerate(saved)
+                        if arr.tobytes() == sv[r][path][1].tobytes()]
+                if hits:
+                    n_cache += 1
+                else:
+                    y = torch.from_numpy(np.ascontiguousarray(arr)).to("cuda")
+                    for i, sv in enumerate(saved):
+                        x = torch.from_numpy(np.ascontiguousarray(sv[r][path][1])).to("cuda")
+                        if same(y, plain_codec(qb_ref, x)[2]):
+                            hits.append(i)
+                    check(hits, f"restore of step {step}: rank {r} {path} != plain "
+                                f"dequant(plain quant) of any save of the step")
+                    n_codec += 1
+            matched[r] = matched.get(r, set(hits)) & set(hits)
+    # a node failed before every restore: its shards came back through the
+    # codec (its neighbour's decoded backup, or the store)
+    check(n_codec > 0, f"restore of step {step} from {sources}: no shard came through the codec")
+    return {"step": step, "sources": sources, "saves_of_step": len(versions),
+            "int8_shards_bit_exact": n_cache, "int8_shards_plain_round_trip": n_codec,
+            # per rank, the saves of the step that all its shards match (empty:
+            # the rank's shards came from different saves of the step)
+            "save_matched_by_rank": {str(r): sorted(h) for r, h in matched.items()}}
+
+
+def _check_loop_int8(inst, report, launches, codec_calls, losses):
+    """The int8 run: one kernel launch per int8 shard encoded or decoded, and
+    the first replayed step's loss within RESTORE_LOSS_REL_TOL of its first
+    pass (each restore was held to its save as it happened)."""
+    want = {"quantize": codec_calls["encode"], "dequantize": codec_calls["decode"]}
+    check(launches == want and want["quantize"] > 0 and want["dequantize"] > 0,
+          f"int8 run launched {launches}, want {want} (one per int8 shard coded)")
+    # the first replayed step after each restore against its first pass
+    first_pass = {}
+    for step, loss in losses:
+        first_pass.setdefault(step, loss)
+    replays = [(s, l) for (p, _), (s, l) in zip(losses, losses[1:]) if s <= p]
+    resumes = _parse_resumes(report)
+    check([s for s, _ in replays] == resumes, f"replays {replays}, resumes {resumes}")
+    replay_rows = []
+    for step, loss in replays:
+        rel = abs(loss - first_pass[step]) / abs(first_pass[step])
+        check(rel <= RESTORE_LOSS_REL_TOL,
+              f"step {step}: replayed loss {loss} vs {first_pass[step]} (rel {rel})")
+        replay_rows.append({"step": step, "first_pass": first_pass[step], "replayed": loss,
+                            "rel_diff": rel})
+    check(len(inst["restored"]) == len(inst["restores"]) > 0,
+          f"{len(inst['restored'])} restores checked of {len(inst['restores'])}")
+    return {"launches": launches, "int8_codec_calls": dict(codec_calls),
+            "restore_checks": inst["restored"], "replayed_loss": replay_rows,
+            "replayed_loss_rel_tol": RESTORE_LOSS_REL_TOL}
 
 
 def main() -> int:
@@ -1511,6 +1996,8 @@ def main() -> int:
     phase_worker()
     phase_capstone()
     single = phase_train_single(qb_ops, qb_ref)
+    torch.cuda.empty_cache()
+    loop = phase_closed_loop(qb_ops, qb_ref)
     kernels = []
     for name, kind, src, count in (("flash_attention_fwd", "sm90", "flash_attention_sm90.cu",
                                     launches),
@@ -1526,13 +2013,15 @@ def main() -> int:
     for name, line, key, count in (("quantize_blockwise", 18, "quantize", "quant_launches"),
                                    ("dequantize_blockwise", 29, "dequantize", "dequant_launches")):
         t = quant[key]
-        # launches: the checkpoint phase's plus the engine phase's (both
-        # saves and backups, and the restores), with the split beside them
+        # launches: the checkpoint phase's, the engine phase's (both saves
+        # and backups, and the restores) and the closed loop's int8 run,
+        # with the split beside them
         by_path = {"checkpoint": ckpt[count], "tce_engine": engine_run["launches"][key],
+                   "closed_loop": loop["launches"][key],
                    "train_single": single["launches"][key]}
         kernels.append({
             "name": name, "route": "cuda", "source": QB_SRC, "replaces": f"{QB_REPLACES}:{line}",
-            "launches": by_path["checkpoint"] + by_path["tce_engine"],
+            "launches": by_path["checkpoint"] + by_path["tce_engine"] + by_path["closed_loop"],
             "launches_by_path": by_path, "max_abs_err": quant["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})

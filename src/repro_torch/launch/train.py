@@ -21,6 +21,12 @@ the reference).
         --tiny --ranks 2 --spares 2 --steps 24 --ckpt-every 6 \
         --inject-kills 9:1,17:0 --device cpu
 
+    # the same protected run on the modelled cluster (seconds, no procs;
+    # the TOL burn-ins run on --device):
+    PYTHONPATH=src python -m repro_torch.launch.train --substrate sim \
+        --ranks 4 --steps 40 --ckpt-every 10 --inject-kills 13:1,27:2 \
+        --device cpu
+
 The flags are the reference's, plus ``--device`` (default ``cuda``; without
 a card the run fails before any rank starts or any checkpoint is written).
 ``--substrate single`` (the default) is the in-process loop: the real train
@@ -29,14 +35,13 @@ step on ``--device``, checkpointing through one local TCE rank
 resuming from the freshest checkpoint with ``--resume``. It trains in
 deterministic mode, so a resumed run repeats the uninterrupted one bit for
 bit; it exits 1 unless every checkpoint it took became durable (the
-reconciler quiesced and logged no error). ``--substrate process`` hands
+reconciler quiesced and logged no error). ``--substrate process|sim`` hand
 the run to the shared recovery driver
-(:func:`repro_torch.substrate.driver.run_protected`) over a
-:class:`~repro_torch.substrate.process.ProcessSubstrate`; as in the
-reference, the rank workers always train the reduced arch, so ``--reduced``
-changes nothing there. The ``sim`` substrate is not ported yet and exits 2
-with the ROADMAP item that brings it. Exit code follows the shared
-convention: 0 iff the run completed.
+(:func:`repro_torch.substrate.driver.run_protected`): the substrate is
+built by :func:`repro_torch.substrate.build_substrate` and the driver speaks
+only the Substrate protocol. As in the reference, the process ranks always
+train the reduced arch, so ``--reduced`` changes nothing there. Exit code
+follows the shared convention: 0 iff the run completed.
 """
 from __future__ import annotations
 
@@ -53,13 +58,8 @@ from repro_torch.cli import (EXIT_FAILURE, EXIT_OK, EXIT_USAGE, base_parser,
 
 SUBSTRATES = {
     "single": "in-process training loop, local TCE checkpoints (--resume)",
-    "process": "real multi-process PyTorch ranks + TOL recovery driver",
+    "process": "real multi-process PyTorch ranks + TOL/TEE recovery driver",
     "sim": "modelled cluster under the same recovery driver",
-}
-
-#: the ROADMAP item that brings each substrate the port lacks
-NOT_PORTED = {
-    "sim": "it needs SimSubstrate (ROADMAP queue 1, item 3)",
 }
 
 
@@ -110,8 +110,8 @@ def build_argparser():
                     help="scripted stragglers 'STEP:RANK[:SECONDS],...' — "
                          "SIGSTOP/SIGCONT a live rank (process/sim modes)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                    help="where training (single) or the ranks and the "
-                         "error checks (process) run (default: cuda)")
+                    help="where training (single), the ranks (process) and "
+                         "the error checks (process, sim) run (default: cuda)")
     return ap
 
 
@@ -205,7 +205,7 @@ def run_single(args) -> int:
 
 # --------------------------------------------------------------------------- #
 def run_protected_mode(args) -> int:
-    """The process substrate under the shared recovery driver."""
+    """process/sim substrates under the shared recovery driver."""
     from repro_torch.substrate import build_substrate
     from repro_torch.substrate.driver import (DriveConfig, KillSpec,
                                               StallSpec, run_protected)
@@ -218,12 +218,17 @@ def run_protected_mode(args) -> int:
         return EXIT_USAGE
 
     try:
-        sub = build_substrate(
-            "process", n_ranks=args.ranks, n_spares=args.spares,
-            ckpt_dir=args.ckpt_dir, seed=args.seed, arch=args.arch,
-            layers=args.layers or 1, batch=args.batch, seq=args.seq,
-            lr=args.lr, total_steps=args.steps, codec=args.codec,
-            device=args.device)
+        if args.substrate == "process":
+            sub = build_substrate(
+                "process", n_ranks=args.ranks, n_spares=args.spares,
+                ckpt_dir=args.ckpt_dir, seed=args.seed, arch=args.arch,
+                layers=args.layers or 1, batch=args.batch, seq=args.seq,
+                lr=args.lr, total_steps=args.steps, codec=args.codec,
+                device=args.device)
+        else:
+            sub = build_substrate("sim", n_nodes=args.ranks,
+                                  n_spares=args.spares,
+                                  store_root=args.ckpt_dir, device=args.device)
     except DeviceUnavailable as e:
         print(f"error: DeviceUnavailable: {e}", file=sys.stderr)
         return EXIT_FAILURE
@@ -251,10 +256,6 @@ def main(argv=None) -> int:
             what="substrate modes",
             hint="python -m repro_torch.launch.train --substrate <name>")
     _apply_tiny(args)
-    if args.substrate in NOT_PORTED:
-        print(f"error: --substrate {args.substrate} is not ported yet: "
-              f"{NOT_PORTED[args.substrate]}", file=sys.stderr)
-        return EXIT_USAGE
     if args.substrate == "single":
         return run_single(args)
     return run_protected_mode(args)

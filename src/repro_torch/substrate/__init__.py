@@ -1,18 +1,21 @@
-"""repro_torch.substrate — the Substrate API over real PyTorch ranks
+"""repro_torch.substrate — one Substrate API for simulated and real training
 (``repro.substrate`` is the reference).
 
-The fault-tolerance stack (TOL error checks, the shared RecoveryPlanner)
-drives a *substrate* through one protocol
+The fault-tolerance stack (TOL orchestration, TEE attribution, the shared
+RecoveryPlanner) drives a *substrate* through one protocol
 (:class:`~repro_torch.substrate.base.Substrate`):
 
     start_ranks / health / kill / save_via_tce / restore_via_tce /
     step_metrics
 
-The port has one implementation so far, ``ProcessSubstrate``: real
-multi-process ranks (``repro_torch.substrate.worker`` subprocesses on the
-card or the CPU), real train states through the TCE DiskStore datapath,
-faults injected by SIGKILL. The modelled cluster (``SimSubstrate``) comes with
-the TCE engine and the TEE (ROADMAP queue 1, item 3).
+with two interchangeable implementations:
+
+* ``SimSubstrate``     — the modelled cluster (one SimClock/Topology), whose
+                         TOL burn-ins run on its ``device``;
+* ``ProcessSubstrate`` — real multi-process ranks
+                         (``repro_torch.substrate.worker`` subprocesses on
+                         the card or the CPU), real train states through the
+                         TCE DiskStore datapath, faults injected by SIGKILL.
 
 ``build_substrate(mode=...)`` is the one front door; the shared recovery
 driver is :func:`repro_torch.substrate.driver.run_protected`.
@@ -20,10 +23,12 @@ driver is :func:`repro_torch.substrate.driver.run_protected`.
 from __future__ import annotations
 
 from .base import FaultNotice, RankHealth, StepSlice, Substrate
+from .sim import SimSubstrate, build_sim_substrate
 
 __all__ = [
     "Substrate", "RankHealth", "FaultNotice", "StepSlice",
-    "ProcessSubstrate", "build_substrate",
+    "SimSubstrate", "ProcessSubstrate",
+    "build_sim_substrate", "build_substrate",
 ]
 
 
@@ -36,19 +41,19 @@ def __getattr__(name: str):
     raise AttributeError(name)
 
 
-def build_substrate(mode: str = "process", **kwargs):
-    """One front door for the substrates.
+def build_substrate(mode: str = "sim", **kwargs):
+    """One front door for both substrates.
 
+    ``mode="sim"``     -> :func:`build_sim_substrate` kwargs (n_nodes,
+                          n_spares, nodes_per_rack, store_root, with_tee,
+                          verbose, nas_bw, device).
     ``mode="process"`` -> :class:`ProcessSubstrate` kwargs (n_ranks,
                           n_spares, ckpt_dir, seed, device, ...).
-    ``mode="sim"``     -> not ported yet (ROADMAP queue 1, item 3).
     """
+    if mode == "sim":
+        return build_sim_substrate(**kwargs)
     if mode == "process":
         from .process import ProcessSubstrate
         return ProcessSubstrate(**kwargs)
-    if mode == "sim":
-        raise NotImplementedError(
-            "the sim substrate is not ported yet: it needs the TCE engine "
-            "and the TEE (ROADMAP queue 1, item 3)")
     raise ValueError(f"unknown substrate mode {mode!r} "
                      f"(expected 'sim' or 'process')")

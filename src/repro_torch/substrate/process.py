@@ -18,15 +18,10 @@ are durably on disk (tmp-file + rename, index written last), and the
 A rank killed mid-save leaves an invisible, uncommitted step directory —
 ``latest_step()`` never returns it, so restores can't tear.
 
-Two differences from the reference:
-
-* ``device`` is resolved here, before any rank is spawned, so asking for
-  ``cuda`` on a host without a card raises ``DeviceUnavailable`` and starts
-  no worker; each worker's ready line must name the same device.
-* ``with_tee`` defaults to ``False`` (the reference's default is ``True``),
-  and ``True`` raises: the TEE comes with ROADMAP queue 1, item 3. The
-  planner's decisions do not depend on it, because eviction comes from
-  ``node_health_check`` on the FAILED node, not from the TEE.
+One difference from the reference: ``device`` is resolved here, before
+any rank is spawned, so asking for ``cuda`` on a host without a card raises
+``DeviceUnavailable`` and starts no worker; each worker's ready line must
+name the same device.
 """
 from __future__ import annotations
 
@@ -58,13 +53,9 @@ class ProcessSubstrate:
                  batch: int = 4, seq: int = 32, lr: float = 1e-2,
                  total_steps: int = 100, codec: str = "raw",
                  delta: bool = True, nodes_per_rack: int = 2,
-                 job_id: str = "job0", with_tee: bool = False,
+                 job_id: str = "job0", with_tee: bool = True,
                  log_dir: Optional[str] = None, step_time_s: float = 1.0,
                  device: str = "cuda"):
-        if with_tee:
-            raise NotImplementedError(
-                "the TEE is not ported yet (ROADMAP queue 1, item 3); "
-                "use with_tee=False")
         device = resolve_device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", 0)    # a worker's current device
@@ -78,7 +69,6 @@ class ProcessSubstrate:
                                  nodes_per_rack=nodes_per_rack,
                                  clock=self.clock)
         self.server = TransomServer()
-        self.tee = None
         self.ckpt_dir = ckpt_dir or tempfile.mkdtemp(prefix="transom_proc_")
         # the controller decodes on the CPU: prefetch_restore reads every
         # shard here, and an int8 leaf dequantised on the card would open a
@@ -86,6 +76,13 @@ class ProcessSubstrate:
         self.store = DiskStore(self.ckpt_dir, device="cpu")
         self.log_dir = Path(log_dir or self.ckpt_dir) / "rank_logs"
         self.log_dir.mkdir(parents=True, exist_ok=True)
+        if with_tee:
+            from repro_torch.core.tee import TEEService
+
+            from .sim import _fitted_tee
+            self.tee = TEEService(_fitted_tee(n_ranks=n_ranks))
+        else:
+            self.tee = None
         self._spec_base = {
             "n_ranks": n_ranks, "seed": seed, "arch": arch, "layers": layers,
             "batch": batch, "seq": seq, "lr": lr, "total_steps": total_steps,
@@ -159,7 +156,7 @@ class ProcessSubstrate:
         """Freeze ``rank`` for ``stall_s`` during the next training slice
         (SIGSTOP -> sleep -> SIGCONT on the live worker process): a genuine
         straggler whose inflated wall time the metric stream then measures
-        (``last_rank_walls``)."""
+        (``last_rank_walls``) and the streaming TEE attributes."""
         self._stall_next[rank] = self._stall_next.get(rank, 0.0) + stall_s
 
     def schedule_save_death(self, rank: int, save_step: int,

@@ -1,8 +1,11 @@
 """The port's control plane against the reference's: the copied modules
 (simulation kernel, recovery planner, report and CLI conventions, the TOL
-FSM, lease server and cluster view, the Substrate protocol, the recovery
-driver, and the checkpoint engine's arena, cache, fabric and theory model) are the reference's source with the import prefix rewritten, and the
-TOL checks that run on a device (burn-in, collective) hold on the CPU.
+FSM, lease server, cluster view, fleet simulation and closed-loop operator,
+the TEE and the streaming TEE, the Substrate protocol, the recovery driver,
+the modelled-cluster substrate, and the checkpoint engine's arena, cache,
+fabric and theory model) are the reference's source with the import prefix
+rewritten, and the TOL checks that run on a device (burn-in, collective)
+hold on the CPU.
 """
 import difflib
 import re
@@ -19,6 +22,12 @@ from repro_torch.core.tol import tasks  # noqa: E402
 from repro_torch.sim.topology import NodeState, Topology  # noqa: E402
 
 SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def _ref_line(path: str, lineno: int) -> str:
+    """One line of a reference module, as it stands."""
+    return (SRC / "repro" / path).read_text().splitlines()[lineno - 1]
+
 
 #: copies of the reference, path -> (reference lines dropped, port lines
 #: added) after the import rewrite; none of the plain copies names JAX
@@ -39,6 +48,70 @@ COPIES = {
     "core/tce/arena.py": ((), ()),
     "core/tce/model.py": ((), ()),
     "core/tce/transport.py": ((), ()),
+    "core/tee/__init__.py": ((), ()),
+    "core/tee/detectors.py": ((), ()),
+    "core/tee/preprocess.py": ((), ()),
+    "core/tee/service.py": ((), ()),
+    "core/tee/traces.py": ((), ()),
+    # its registry pickles TEEModels, so a registry loads only in the package
+    # that wrote it
+    "core/tee/trainer.py": ((), ()),
+    "tee_stream/__init__.py": ((), ()),
+    "tee_stream/batch.py": ((), ()),
+    "tee_stream/correlator.py": ((), ()),
+    "tee_stream/ring.py": ((), ()),
+    "tee_stream/stream.py": ((), ()),
+    "core/tol/simulate.py": ((), ()),
+    # three departures: an explicit device for the task suites, a host
+    # snapshot of the initial state (the port's step trains in place), and
+    # the port's engine (the import rewrite covers it); the docstring names them
+    "core/tol/orchestrator.py": (
+        ("                 planner: Optional[RecoveryPlanner] = None):",
+         "                                       self._rank_to_node())",
+         "                state = init_state",
+         "        results = warmup_tasks(self.cluster)"),
+        ("",
+         "Counterpart of ``repro.core.tol.orchestrator``: the reference's source with",
+         "the import prefix rewritten and three departures.",
+         "",
+         "* An explicit device. The port's warm-up and error-check suites take the",
+         "  device their burn-in runs on; ``TransomOperator(device=None)`` resolves it",
+         "  (the card unless ``\"cpu\"`` is asked for) and hands it to both suites, so",
+         "  the burn-in runs on the card the job trains on.",
+         "* The initial state is snapshotted. The port's train step updates params",
+         "  and moments in place, so a fault before the first checkpoint must not",
+         "  fall back to ``init_state`` (by then the trained tensors): ``run_job``",
+         "  keeps a host copy (``flatten_pytree``) when it starts and falls back to",
+         "  ``unflatten_like(init_state, that copy)``.",
+         "* Imports: the engine ``_rebuild_engine`` builds is the port's.",
+         "from repro_torch import resolve_device",
+         "                 planner: Optional[RecoveryPlanner] = None, device=None):",
+         "        self.device = resolve_device(device)",
+         "        init_flat = flatten_pytree(init_state)",
+         "                                       self._rank_to_node(), device=self.device)",
+         "                state = unflatten_like(init_state, init_flat)",
+         "        results = warmup_tasks(self.cluster, device=self.device)")),
+    # the modelled cluster gains device (resolved first, handed to the
+    # operator); a docstring line on the reference's history is restated
+    "substrate/sim.py": (
+        (_ref_line("substrate/sim.py", 6),
+         "                        nas_bw: float = 1e9) -> SimSubstrate:",
+         "                               verbose=verbose)"),
+        ("wired on top. It also implements the :class:`repro.substrate.base.Substrate`",
+         "",
+         "Counterpart of ``repro.substrate.sim``; the port's departure is ``device``:",
+         "``build_sim_substrate(device=None)`` resolves it (the card unless ``\"cpu\"``",
+         "is asked for) before anything is built and hands it to the operator, whose",
+         "warm-up and error-check burn-ins are the modelled cluster's only device",
+         "work; ``SimSubstrate.device`` is the operator's, for the shared driver.",
+         "from repro_torch import resolve_device",
+         "",
+         "    @property",
+         "    def device(self):",
+         "        return self.operator.device",
+         "                        nas_bw: float = 1e9, device=None) -> SimSubstrate:",
+         "    device = resolve_device(device)",
+         "                               verbose=verbose, device=device)")),
     # the cache names a leaf's dtype as the codec does (the bf16 carrier)
     "core/tce/cache.py": (
         ("                    stored[path] = StoredShard(spec, sid, n, str(data.dtype),",) * 2
