@@ -23,6 +23,17 @@ random weights:
   decode; decode against forward at full width in float32, and a float32
   full-depth prefill through the kernel against the plain scan, both on
   the ``simt`` kernel (CUDA cores);
+* serving the MoE, hybrid and MLA families at full width, bf16, 8 x 1024 +
+  32 each: ``olmoe-1b-7b`` at full depth (16 layers, every prefill
+  attention on the ``sm90`` flash-attention kernel, the MoE layers through
+  the reference's ``scatter`` dispatch); ``jamba-v0.1-52b`` cut to its
+  first period of 8 layers (one attention layer on ``sm90``, seven SSM
+  layers on the ``simt`` SSD kernel at d_state 16, MoE on odd layers), and
+  decode against forward in float32 at 2 layers; ``deepseek-v3-671b`` cut
+  to its 3 dense layers and one MLA + MoE layer, without the MTP head
+  (serving never reads it), which launches no hand kernel (MLA attends at
+  head dims 192 / 128 through ``chunked_attention``, as the reference), and
+  its absorbed decode against its reconstructing forward;
 * one training rank, 4 layers (an Adam state of all 32 does not fit one
   card): ``make_train_step`` for 8 timed steps of 4 x 1024 tokens, then a
   TCE checkpoint of the trained params through ``DiskStore`` with the
@@ -71,6 +82,7 @@ without a card, or outside a checkout of the repo.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -113,6 +125,14 @@ DECODE_TOL = 2e-4
 # two differ only in summation order (~1e-7 relative per layer); allow 1e-3 of
 # the logits' scale, 100x below the bf16 limit above.
 F32_LOGITS_REL_TOL = 1e-3
+# An MoE model's kernel-vs-plain check replays the kernel pass's routing in
+# the other pass (``Routing``). Bounds on the tokens that pass would have
+# routed otherwise, as tests/test_torch_families.py holds the bf16 forward
+# against the reference: each must be a near tie (k-th and (k+1)-th router
+# probabilities within this gap), and at most this share of the routed tokens
+# may flip. A kernel error that moves routing beyond near ties breaks either.
+ROUTING_FLIP_GAP = 1e-2
+ROUTING_FLIP_SHARE = 1 / 8
 
 # The SSM serving path: mamba2-130m, one wave of 8 requests x 4096-token
 # prompts (16 chunks of 256), 32 generated tokens, full depth (24 layers).
@@ -124,11 +144,24 @@ SSD_REPLACES = "src/repro/kernels/ssd_scan/ssd_scan.py:24"
 # summation order; bf16: x, B, C are bf16, y is rounded to bf16 once).
 SSD_Y_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 SSD_STATE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# The MoE, hybrid and MLA serving paths: one wave of 8 x 1024-token prompts
+# and 32 generated tokens each, at full width. (arch, layers kept, MTP depth);
+# None keeps the published depth. jamba: one whole period of its 1:7
+# attention interleave (32 layers, ~104 GB in bf16, do not fit one card);
+# deepseek-v3: the 3 dense layers and one MLA + MoE layer, no MTP head.
+FAMILY_SERVES = (("olmoe-1b-7b", None, None), ("jamba-v0.1-52b", 8, None),
+                 ("deepseek-v3-671b", 4, 0))
+FAMILY_REQUESTS, FAMILY_PROMPT_LEN, FAMILY_GEN = 8, 1024, 32
+# The absorbed MLA decode against the reconstructing forward, bf16: 2 x 256
+# tokens (prefill 255, decode token 255). The limit is the prefill check's.
+MLA_CHECK_BATCH, MLA_CHECK_SEQ = 2, 256
+
 # (b, s, nh, p, g, n, chunk, dtype): tests/test_kernels.py SSD_CASES, the
 # chunks of the decode check's 17-token forward and 16-token prefill (simt),
 # the sm90 kernel's cases of tests/test_torch_ssd_passes.py (one chunk of 64
 # at n 64 and n 128, chunks of 128 and 256 over several chunks, g 2 with
-# nh 8), then the main path's shape in bf16 (sm90) and float32 (simt); x, B,
+# nh 8), jamba's SSM layers in its serve wave (bf16, p 64, n 16, 128 heads:
+# simt), then the main path's shape in bf16 (sm90) and float32 (simt); x, B,
 # C are views into one conv output, as the model passes them. Each case runs
 # on the kernel ops.variant names.
 SSD_CASES = [
@@ -143,7 +176,9 @@ SSD_CASES = [
     (2, 512, 4, 64, 1, 128, 128, torch.bfloat16),
     (2, 1024, 4, 64, 1, 128, 256, torch.bfloat16),
     (2, 512, 8, 64, 2, 64, 128, torch.bfloat16),
+    (FAMILY_REQUESTS, FAMILY_PROMPT_LEN, 128, 64, 1, 16, 256, torch.bfloat16),
 ]
+JAMBA_SSD = SSD_CASES[-1]
 MAIN_SSD = (SSM_REQUESTS, SSM_PROMPT_LEN, 24, 64, 1, 128, 256, torch.bfloat16)
 MAIN_SSD_F32 = MAIN_SSD[:7] + (torch.float32,)
 # The sm90 kernel and its passes at the main path's token count cut two
@@ -156,8 +191,9 @@ SSD_PASSES = ("chunk_state", "state_pass", "chunk_scan")
 # FA_CASES, two ragged cases, the sm90 kernel's cases of
 # tests/test_torch_kernels.py (one tile at D 64 and 128, ragged causal with
 # an empty second consumer in the last tile, GQA rep 4 at D 64, D 128
-# without the mask), the f32 decode check's two shapes (simt), and the
-# main-path shape last.
+# without the mask), olmoe-1b-7b's attention layers in its serve wave (16
+# heads, no GQA grouping, D 128: sm90), the f32 decode check's two shapes
+# (simt), and the main-path shape last.
 FA_CASES = [
     (2, 128, 128, 4, 2, 64, True, torch.float32),
     (1, 256, 256, 8, 8, 64, True, torch.float32),
@@ -171,6 +207,7 @@ FA_CASES = [
     (1, 1000, 1000, 32, 8, 128, True, torch.bfloat16),
     (2, 384, 384, 16, 4, 64, True, torch.bfloat16),
     (2, 300, 300, 8, 2, 128, False, torch.bfloat16),
+    (FAMILY_REQUESTS, FAMILY_PROMPT_LEN, FAMILY_PROMPT_LEN, 16, 16, 128, True, torch.bfloat16),
     (2, 17, 17, 32, 8, 128, True, torch.float32),
     (2, 16, 16, 32, 8, 128, True, torch.float32),
 ]
@@ -292,6 +329,7 @@ def quant_bound(n: int, block: int, quantise: bool):
 
 
 KERNEL_KINDS = (("ssd_scan", ("ssd_fwd",)), ("flash_attention", ("fa_fwd",)),
+                ("topk", ("topk",)), ("scan / sort", ("scan", "sort", "radix")),
                 ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "matmul")),
                 ("softmax", ("softmax",)), ("reduce", ("reduce",)),
                 ("gather / scatter", ("index", "gather", "scatter")),
@@ -443,35 +481,112 @@ def phase_kernel(fa_ops, fa_ref):
     return timings
 
 
-def phase_serve(ops, serve_cli, engine, arch, requests, prompt_len, gen, kernel, variant=None):
-    """One wave through ``repro_torch.launch.serve.main`` at full size, the
-    kernel's launches counted in that run alone (and, where the kernel has
-    variants, every launch on ``variant``); then a warm wave, and the
-    prefill logits against an all-plain prefill."""
-    from repro_torch.configs import get_config
+def layer_counts(cfg) -> dict:
+    """Prefill launches one wave should make, per kernel: flash attention
+    once per attention layer (MLA layers attend in plain torch), the SSD scan
+    once per SSM layer."""
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    return {"fa": 0 if cfg.mla is not None else kinds.count("attn"), "ssd": kinds.count("ssm")}
 
-    torch.cuda.reset_peak_memory_stats()
-    argv = ["--arch", arch, "--requests", str(requests), "--prompt-len", str(prompt_len),
-            "--gen", str(gen), "--seed", str(SEED), "--device", "cuda"]
-    ops.LAUNCHES = 0
-    if variant:
+
+def layer_pattern(cfg) -> list:
+    """Each layer as mixer/mlp (the model's own ``layer_spec``)."""
+    from repro_torch.models import blocks
+    return [f"{sp.kind}/{sp.mlp}" for sp in (blocks.layer_spec(cfg, i)
+                                             for i in range(cfg.n_layers))]
+
+
+class Routing:
+    """Records the experts each MoE layer's router picks in one pass and
+    makes a later pass route the same way (its gate weights from its own
+    probabilities at those experts, renormalised as ``_gate`` does).
+
+    A router's top-k is discrete: where two of its probabilities nearly tie,
+    a bf16 rounding anywhere upstream (a kernel's or the plain version's)
+    can pick the other expert and change the layer's output by O(1) at that
+    token. So a kernel is held against its plain version through an MoE
+    model with the routing of the kernel's pass replayed in the plain pass;
+    the tokens the plain pass would have routed differently are counted
+    (``flips``) with the largest gap between their k-th and (k+1)-th
+    probabilities (``flip_gap``)."""
+
+    def __init__(self, moe_mod):
+        self.moe, self.gate = moe_mod, moe_mod._gate
+        self.mode, self.seen, self.i, self.rows = None, [], 0, slice(None)
+        self.flips, self.flip_gap = 0, 0.0
+
+    def __enter__(self):
+        self.moe._gate = self._gate
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._gate = self.gate
+
+    def record(self):
+        self.mode, self.seen = "record", []
+
+    def replay(self, positions=slice(None)):
+        self.mode, self.i, self.rows = "replay", 0, positions
+
+    def _gate(self, p, x, cfg):
+        probs, gate_w, idx = self.gate(p, x, cfg)
+        if self.mode == "record":
+            self.seen.append(idx)
+        elif self.mode == "replay":
+            want = self.seen[self.i][:, self.rows]
+            self.i += 1
+            differ = (idx.sort(-1).values != want.sort(-1).values).any(-1)
+            if bool(differ.any()):
+                top = probs.sort(-1, descending=True).values
+                k = cfg.moe.top_k
+                self.flips += int(differ.sum())
+                self.flip_gap = max(self.flip_gap,
+                                    float((top[..., k - 1] - top[..., k])[differ].max()))
+            gate_w = probs.gather(-1, want)
+            gate_w, idx = gate_w / (gate_w.sum(-1, keepdim=True) + 1e-9), want
+        return probs, gate_w, idx
+
+
+def top_kernels(prof, n: int = 12) -> list:
+    """The ``n`` CUDA kernels with the most device time, [name, ms]."""
+    rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    return [[k[:90], round(ms, 3)] for k, ms in sorted(rows, key=lambda r: -r[1])[:n]]
+
+
+def reset_counts(kernels) -> None:
+    for ops in kernels.values():
+        ops.LAUNCHES = 0
         ops.LAUNCHES_BY_VARIANT.update({k: 0 for k in ops.LAUNCHES_BY_VARIANT})
-    res = serve_cli.main(argv)                  # the main path, counted
-    launches = ops.LAUNCHES
-    by_variant = dict(ops.LAUNCHES_BY_VARIANT) if variant else None
+
+
+def phase_serve(kernels, serve_cli, engine, cfg, requests, prompt_len, gen, variants,
+                compare_plain=True, keep=False, cut=None):
+    """One wave at ``cfg``'s size (the published config, or a depth cut at
+    full width) through the port's serving entry point,
+    ``repro_torch.launch.serve.serve`` (what its ``main`` runs), weights from
+    ``SEED``. Every kernel's launches are counted in that run alone, by
+    variant, against the layers of its kind (``variants`` names the one each
+    kernel must take). Then a warm wave, a profiled prefill, and the prefill
+    logits against an all-plain prefill. ``keep`` returns the weights for a
+    later check."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    res = serve_cli.serve(cfg, requests, prompt_len, gen, SEED, torch.device("cuda"))
+    launches = {k: ops.LAUNCHES for k, ops in kernels.items()}
+    by_variant = {k: dict(ops.LAUNCHES_BY_VARIANT) for k, ops in kernels.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    cfg, params, prompts = res["cfg"], res["params"], res["prompts"]
-    check(cfg == get_config(arch), "serve did not run the full-size config")
+    params, prompts = res["params"], res["prompts"]
     toks = res["tokens"]
     check(tuple(toks.shape) == (requests, gen), f"tokens shape {tuple(toks.shape)}")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "token out of [0, vocab)")
     for key in ("prefill_logits", "last_logits"):
         check(bool(torch.isfinite(res[key].float()).all()), f"non-finite {key}")
-    check(launches == cfg.n_layers,
-          f"{kernel} launched {launches} times in the serve run, want {cfg.n_layers}")
-    if variant:
-        want = {k: cfg.n_layers if k == variant else 0 for k in by_variant}
-        check(by_variant == want, f"{kernel} launches by variant {by_variant}, want {want}")
+    counts = layer_counts(cfg)
+    for k, ops in kernels.items():
+        want = {v: counts[k] if v == variants.get(k) else 0 for v in ops.LAUNCHES_BY_VARIANT}
+        check(launches[k] == counts[k] and by_variant[k] == want,
+              f"{cfg.name}: {k} launched {launches[k]} times {by_variant[k]}, want {want}")
 
     # Warm wave: steady-state times (cuBLAS and allocator already warm).
     warm = serve_cli.serve_wave(params, cfg, prompts, gen)
@@ -495,40 +610,87 @@ def phase_serve(ops, serve_cli, engine, arch, requests, prompt_len, gen, kernel,
                 by_hand_kernel[short] = by_hand_kernel.get(short, 0.0) + e.self_device_time_total / 1e3
     busy_ms = sum(by_kind.values())
 
-    # Kernel vs plain through the whole prefill.
-    with torch.inference_mode():
-        plain_logits, _ = engine.prefill_fn(params, cfg, {"tokens": prompts}, attn_impl="plain")
-    diff = float((res["prefill_logits"].float() - plain_logits.float()).abs().max())
-    scale = float(plain_logits.float().abs().max())
-    agree = float((res["prefill_logits"].argmax(-1) == plain_logits.argmax(-1)).float().mean())
-    check(diff <= LOGITS_REL_TOL * scale,
-          f"prefill logits kernel vs plain: max |diff| {diff} > {LOGITS_REL_TOL} x {scale}")
-    out = {"phase": "serve", "arch": arch, "n_params": cfg.n_params(), "n_layers": cfg.n_layers,
+    out = {"phase": "serve", "arch": cfg.name, "cut": cut, "n_params": cfg.n_params(),
+           "n_layers": cfg.n_layers, "layer_pattern": layer_pattern(cfg),
            "d_model": cfg.d_model, "requests": requests, "prompt_len": prompt_len, "gen": gen,
-           "dtype": cfg.compute_dtype, f"{kernel}_launches": launches,
-           f"{kernel}_launches_by_variant": by_variant,
+           "dtype": cfg.compute_dtype, "launches": launches, "launches_by_variant": by_variant,
            "first_prefill_ms": res["prefill_s"] * 1e3, "prefill_ms": warm["prefill_s"] * 1e3,
            "prefill_tok_s": requests * prompt_len / warm["prefill_s"],
            "decode_ms_per_step": warm["decode_s"] / (gen - 1) * 1e3,
            "decode_tok_s": requests * (gen - 1) / warm["decode_s"],
-           "peak_mem_gb": peak_gb, "logits_max_abs_diff": diff, "logits_scale": scale,
-           "logits_rel_tol": LOGITS_REL_TOL, "argmax_agree": agree,
-           "warm_tokens_equal": bool(torch.equal(warm["tokens"], toks)),
+           "peak_mem_gb": peak_gb, "warm_tokens_equal": bool(torch.equal(warm["tokens"], toks)),
            "profiled_prefill_ms": profiled_ms, "profiled_kernel_ms_by_kind": by_kind,
-           f"profiled_{kernel}_ms_by_kernel": by_hand_kernel,
+           "profiled_hand_kernel_ms": by_hand_kernel, "profiled_top_kernels": top_kernels(prof),
            "profiled_kernel_ms": busy_ms, "device_busy_share_of_prefill": busy_ms / profiled_ms}
+    if compare_plain:
+        # Kernel vs plain through the whole prefill; an MoE model's plain
+        # pass takes the kernel pass's routing (``Routing``).
+        from repro_torch.models import moe as moe_mod
+
+        with torch.inference_mode():
+            plain_logits, _ = engine.prefill_fn(params, cfg, {"tokens": prompts},
+                                                attn_impl="plain")
+            got = res["prefill_logits"].float()
+            if cfg.moe is not None:
+                out["logits_max_abs_diff_own_routing"] = float(
+                    (got - plain_logits.float()).abs().max())
+                with Routing(moe_mod) as routing:
+                    routing.record()
+                    got, _ = engine.prefill_fn(params, cfg, {"tokens": prompts})
+                    routing.replay()
+                    plain_logits, _ = engine.prefill_fn(params, cfg, {"tokens": prompts},
+                                                        attn_impl="plain")
+                got = got.float()
+                out.update(routing_flips=routing.flips, routing_flip_gap=routing.flip_gap,
+                           routed_tokens=requests * prompt_len * sum(
+                               cfg.mlp_kind(i) == "moe" for i in range(cfg.n_layers)))
+        diff = float((got - plain_logits.float()).abs().max())
+        scale = float(plain_logits.float().abs().max())
+        out.update(logits_max_abs_diff=diff, logits_scale=scale, logits_rel_tol=LOGITS_REL_TOL,
+                   argmax_agree=float((got.argmax(-1) == plain_logits.argmax(-1)).float().mean()))
+        del plain_logits, got
     emit(out)
-    return launches, out
+    if "routing_flips" in out:
+        check_flips(out["routing_flips"], out["routing_flip_gap"], out["routed_tokens"],
+                    cfg.name)
+    if compare_plain:
+        check(out["logits_max_abs_diff"] <= LOGITS_REL_TOL * out["logits_scale"],
+              f"prefill logits kernel vs plain: max |diff| {out['logits_max_abs_diff']} > "
+              f"{LOGITS_REL_TOL} x {out['logits_scale']}")
+    return launches, out, ((params, prompts) if keep else None)
 
 
-def phase_decode_check(engine, model_mod, ops, arch, variant=None):
+def check_flips(flips: int, gap: float, routed: int, what: str) -> None:
+    """The replayed routing's flips within ``ROUTING_FLIP_GAP`` and
+    ``ROUTING_FLIP_SHARE``."""
+    check(gap < ROUTING_FLIP_GAP,
+          f"{what}: a token flipped routing at a probability gap {gap} >= {ROUTING_FLIP_GAP}")
+    check(flips <= int(routed * ROUTING_FLIP_SHARE),
+          f"{what}: {flips} of {routed} routed tokens flipped routing, more than "
+          f"{ROUTING_FLIP_SHARE} of them")
+
+
+def no_drop(cfg):
+    """``cfg`` with an MoE capacity of the whole group (capacity factor
+    n_experts / top_k): no routing slot is dropped, so a token's MoE output
+    does not depend on the tokens grouped with it. Prefill plus decode and a
+    forward over the longer sequence group the tokens differently; at the
+    published factor they would drop different slots."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def phase_decode_check(engine, model_mod, ops, arch, variant=None, kind="attn"):
     """Decode position s-1 after prefilling s-1 tokens == forward over s
-    tokens (tests/test_models.py), full width, float32, 2 layers; forward and
-    prefill go through the kernel (where it has variants, all on
-    ``variant``). Returns the kernel's launches in this check."""
+    tokens (tests/test_models.py), full width, float32, 2 layers (MoE at the
+    capacity of the whole group, ``no_drop``); forward and prefill go
+    through the kernel (where it has variants, all on ``variant``), once per
+    layer of ``kind``. Returns the kernel's launches in this check."""
     from repro_torch.configs import get_config
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=2, compute_dtype="float32")
+    cfg = no_drop(dataclasses.replace(get_config(arch), n_layers=2, compute_dtype="float32"))
     params = model_mod.init_params(cfg, seed=2, device="cuda")
     b, s = 2, 17
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -547,15 +709,107 @@ def phase_decode_check(engine, model_mod, ops, arch, variant=None):
     want = full[:, s - 1]
     err = float((dec - want).abs().max())
     ok = bool(((dec - want).abs() <= DECODE_TOL + DECODE_TOL * want.abs()).all())
+    n_kind = sum(cfg.layer_kind(i) == kind for i in range(cfg.n_layers))
     emit({"phase": "decode_matches_forward", "arch": arch, "n_layers": 2,
+          "layer_pattern": layer_pattern(cfg), "n_params": cfg.n_params(),
           "d_model": cfg.d_model, "dtype": "float32", "kernel_launches": launches,
           "kernel_launches_by_variant": by_variant,
           "max_abs_err": err, "tol": DECODE_TOL, "ok": ok})
-    check(launches == 2 * cfg.n_layers, f"{launches} kernel launches in forward + prefill")
+    check(launches == 2 * n_kind, f"{launches} kernel launches in forward + prefill")
     if variant:
         check(by_variant[variant] == launches, f"launches by variant {by_variant}, want {variant}")
     check(ok, f"decode vs forward: max abs err {err}")
     return launches
+
+
+def phase_mla_decode_check(engine, model_mod, kernels, params, cfg):
+    """The absorbed MLA decode against the reconstructing forward, bf16, at
+    the serve phase's weights and width: prefill s - 1 tokens, decode token
+    s - 1 through the ``ckv`` / ``kpe`` latent cache, and compare with a
+    forward over s tokens at that position (MoE at ``no_drop`` capacity, the
+    forward's routing replayed in the prefill and the decode: ``Routing``).
+    Launches no hand kernel."""
+    cfg = no_drop(cfg)
+    b, s = MLA_CHECK_BATCH, MLA_CHECK_SEQ
+    g = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device="cuda")
+    from repro_torch.models import moe as moe_mod
+
+    reset_counts(kernels)
+    with torch.inference_mode(), Routing(moe_mod) as routing:
+        routing.record()
+        full, _, _, _ = model_mod.forward(params, cfg, {"tokens": tokens}, mode="train")
+        want = full[:, s - 1].float()
+        del full
+        routing.replay(slice(0, s - 1))
+        _, cache = engine.prefill_fn(params, cfg, {"tokens": tokens[:, :s - 1]})
+        cache = engine.pad_cache(cfg, cache, b, s + 4)
+        pos = torch.full((b,), s - 1, dtype=torch.long, device="cuda")
+        routing.replay(slice(s - 1, s))
+        dec, _ = engine.decode_fn(params, cfg, tokens[:, s - 1], cache, pos)
+    launched = {k: ops.LAUNCHES for k, ops in kernels.items()}
+    n_moe = sum(cfg.mlp_kind(i) == "moe" for i in range(cfg.n_layers))
+    diff = float((dec.float() - want).abs().max())
+    scale = float(want.abs().max())
+    out = {"phase": "mla_decode_matches_forward", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "dtype": cfg.compute_dtype, "tokens": [b, s], "cache_leaves": sorted(
+               {k for seg in cache.values() for leaves in seg.values() for k in leaves}),
+           "capacity_factor": cfg.moe.capacity_factor, "launches": launched,
+           "routing_flips": routing.flips, "routing_flip_gap": routing.flip_gap,
+           "routed_tokens": b * s * n_moe, "logits_max_abs_diff": diff,
+           "logits_scale": scale, "rel_tol": LOGITS_REL_TOL,
+           "argmax_agree": float((dec.argmax(-1) == want.argmax(-1)).float().mean())}
+    emit(out)
+    check(out["cache_leaves"] == ["ckv", "kpe"], f"MLA cache leaves {out['cache_leaves']}")
+    check(not any(launched.values()), f"the MLA check launched {launched}")
+    check_flips(routing.flips, routing.flip_gap, out["routed_tokens"], "MLA decode check")
+    check(diff <= LOGITS_REL_TOL * scale,
+          f"absorbed decode vs forward: max |diff| {diff} > {LOGITS_REL_TOL} x {scale}")
+    return out
+
+
+def phase_families(kernels, serve_cli, engine, model_mod):
+    """The MoE, hybrid and MLA families at full width (``FAMILY_SERVES``):
+    each serve wave, then jamba's float32 decode check and deepseek-v3's
+    absorbed decode check. Each frees its weights before the next."""
+    from repro_torch.configs import get_config
+
+    def freed(what):
+        # each phase must leave the card as it found it (weights freed)
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        gc.collect()
+        after_gc = torch.cuda.memory_allocated()
+        memory[what] = {"allocated_gb": held / 1e9, "after_gc_gb": after_gc / 1e9}
+        check(after_gc <= base + 2 ** 30,
+              f"{what} left {(after_gc - base) / 1e9:.2f} GB allocated on the card")
+
+    base, memory, runs = torch.cuda.memory_allocated(), {}, {}
+    for arch, layers, mtp in FAMILY_SERVES:
+        cfg, cut = get_config(arch), []
+        if layers is not None and layers != cfg.n_layers:
+            cut.append(f"n_layers {cfg.n_layers} -> {layers}")
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        if mtp is not None and mtp != cfg.mtp_depth:
+            cut.append(f"mtp_depth {cfg.mtp_depth} -> {mtp} (serving never reads the MTP "
+                       f"head; with it: {dataclasses.replace(cfg, mtp_depth=1).n_params():,} "
+                       "params)")
+            cfg = dataclasses.replace(cfg, mtp_depth=mtp)
+        mla = cfg.mla is not None
+        variants = {"fa": "sm90", "ssd": "simt"}
+        launches, out, kept = phase_serve(kernels, serve_cli, engine, cfg, FAMILY_REQUESTS,
+                                          FAMILY_PROMPT_LEN, FAMILY_GEN, variants,
+                                          compare_plain=not mla, keep=mla, cut=cut or None)
+        if mla:
+            out["mla_check"] = phase_mla_decode_check(engine, model_mod, kernels, kept[0], cfg)
+            del kept
+        runs[arch] = out
+        freed(arch)
+    runs["decode_simt"] = phase_decode_check(engine, model_mod, kernels["ssd"],
+                                             "jamba-v0.1-52b", variant="simt", kind="ssm")
+    freed("decode_check_jamba")
+    emit({"phase": "families_memory", "base_gb": base / 1e9, "after": memory})
+    return runs
 
 
 def phase_f32_prefill_check(engine, model_mod, ops, arch, variant):
@@ -760,15 +1014,20 @@ def phase_ssd_kernel(ssd_ops, ssd_ref):
     emit({"phase": "ssd_passes_vs_plain", "shape": list(MAIN_SSD[:7]), "passes": passes})
     del states, cum, w_states, w_cum, h_in, final, w_h_in, w_final, h16, y, wy
 
+    # each kernel's times at its main-path shape: sm90 at mamba2's, simt at
+    # jamba's (bf16, n 16) and at mamba2's in float32
     timings = {}
-    for case, row in ((MAIN_SSD, rows[len(SSD_CASES)]), (MAIN_SSD_F32, rows[len(SSD_CASES) + 1])):
+    check(rows[len(SSD_CASES) - 1]["variant"] == "simt", "jamba's SSD shape must run on simt")
+    for key, case, row in (("sm90", MAIN_SSD, rows[len(SSD_CASES)]),
+                           ("simt", JAMBA_SSD, rows[len(SSD_CASES) - 1]),
+                           ("simt_f32", MAIN_SSD_F32, rows[len(SSD_CASES) + 1])):
         x, dtv, A, B, C = ssd_inputs(case, seed=8)
         chunk = case[6]
         kernel_ms = time_ms(lambda: ssd_ops.ssd_scan(x, dtv, A, B, C, chunk=chunk))
         plain_ms = time_ms(lambda: ssd_ref.ssd_reference(x, dtv, A, B, C, chunk=chunk))
         bound_s, bound_by, flops, nbytes = ssd_bound(case)
         kind = row["variant"]
-        timings[kind] = {
+        timings[key] = {
             "phase": "ssd_kernel_timing", "variant": kind, "shape": list(case[:7]),
             "dtype": row["dtype"], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": None, "library": "none: no single PyTorch call computes the SSD scan",
@@ -777,10 +1036,10 @@ def phase_ssd_kernel(ssd_ops, ssd_ref):
             "roofline_share": bound_s * 1e3 / kernel_ms, "vs_plain": plain_ms / kernel_ms,
             "max_abs_err": row["max_abs_err"]}
         if kind == "sm90":
-            timings[kind]["passes"] = ssd_pass_times(ssd_ops, case, x, dtv, A, B, C)
+            timings[key]["passes"] = ssd_pass_times(ssd_ops, case, x, dtv, A, B, C)
         del x, dtv, A, B, C
         torch.cuda.empty_cache()
-        emit(timings[kind])
+        emit(timings[key])
 
     rates = []
     for i, case in enumerate(SSD_RATE_CASES):
@@ -1964,27 +2223,32 @@ def main() -> int:
     from repro_torch.kernels.quant_blockwise import ref as qb_ref
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve as serve_cli
     from repro_torch.models import model as model_mod
     from repro_torch.serve import engine
 
     t0 = time.perf_counter()
+    kernels = {"fa": fa_ops, "ssd": ssd_ops}
     phase_device()
     phase_build(_build)
     timing = phase_kernel(fa_ops, fa_ref)
     torch.cuda.empty_cache()
-    launches, _ = phase_serve(fa_ops, serve_cli, engine, ARCH, REQUESTS, PROMPT_LEN, GEN,
-                              "fa", variant="sm90")
+    launches, _, _ = phase_serve(kernels, serve_cli, engine, get_config(ARCH), REQUESTS,
+                                 PROMPT_LEN, GEN, {"fa": "sm90"})
     torch.cuda.empty_cache()
     simt_launches = phase_decode_check(engine, model_mod, fa_ops, ARCH, variant="simt")
     torch.cuda.empty_cache()
     ssd_timing = phase_ssd_kernel(ssd_ops, ssd_ref)
     torch.cuda.empty_cache()
-    ssd_launches, _ = phase_serve(ssd_ops, serve_cli, engine, SSM_ARCH, SSM_REQUESTS,
-                                  SSM_PROMPT_LEN, SSM_GEN, "ssd", variant="sm90")
+    ssd_launches, _, _ = phase_serve(kernels, serve_cli, engine, get_config(SSM_ARCH),
+                                     SSM_REQUESTS, SSM_PROMPT_LEN, SSM_GEN, {"ssd": "sm90"})
     torch.cuda.empty_cache()
-    ssd_simt_launches = phase_decode_check(engine, model_mod, ssd_ops, SSM_ARCH, variant="simt")
-    ssd_simt_launches += phase_f32_prefill_check(engine, model_mod, ssd_ops, SSM_ARCH, "simt")
+    ssd_checks = phase_decode_check(engine, model_mod, ssd_ops, SSM_ARCH, variant="simt",
+                                    kind="ssm")
+    ssd_checks += phase_f32_prefill_check(engine, model_mod, ssd_ops, SSM_ARCH, "simt")
+    torch.cuda.empty_cache()
+    families = phase_families(kernels, serve_cli, engine, model_mod)
     torch.cuda.empty_cache()
     quant = phase_quant_kernel(qb_ops, qb_ref)
     torch.cuda.empty_cache()
@@ -1998,15 +2262,19 @@ def main() -> int:
     single = phase_train_single(qb_ops, qb_ref)
     torch.cuda.empty_cache()
     loop = phase_closed_loop(qb_ops, qb_ref)
-    kernels = []
-    for name, kind, src, count in (("flash_attention_fwd", "sm90", "flash_attention_sm90.cu",
-                                    launches),
-                                   ("flash_attention_fwd_simt", "simt", "flash_attention.cu",
-                                    simt_launches)):
+    fa_paths = {"serve_llama": launches["fa"],
+                "serve_olmoe": families["olmoe-1b-7b"]["launches"]["fa"],
+                "serve_jamba": families["jamba-v0.1-52b"]["launches"]["fa"]}
+    entries = []
+    for name, kind, src, by_path in (
+            ("flash_attention_fwd", "sm90", "flash_attention_sm90.cu", fa_paths),
+            ("flash_attention_fwd_simt", "simt", "flash_attention.cu",
+             {"decode_check_llama": simt_launches})):
         t = timing[kind]
-        kernels.append({
+        entries.append({
             "name": name, "route": "cuda", "source": FA_SRC + src, "replaces": FA_REPLACES,
-            "launches": count, "max_abs_err": t["max_abs_err"], "ms": t["kernel_ms"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": t["max_abs_err"], "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "roofline_share": t["roofline_share"],
             "dtype": t["dtype"]})
@@ -2019,22 +2287,30 @@ def main() -> int:
         by_path = {"checkpoint": ckpt[count], "tce_engine": engine_run["launches"][key],
                    "closed_loop": loop["launches"][key],
                    "train_single": single["launches"][key]}
-        kernels.append({
+        entries.append({
             "name": name, "route": "cuda", "source": QB_SRC, "replaces": f"{QB_REPLACES}:{line}",
             "launches": by_path["checkpoint"] + by_path["tce_engine"] + by_path["closed_loop"],
             "launches_by_path": by_path, "max_abs_err": quant["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
-    for name, kind, src, count in (("ssd_scan", "sm90", "ssd_scan_sm90.cu", ssd_launches),
-                                   ("ssd_scan_simt", "simt", "ssd_scan.cu", ssd_simt_launches)):
+    ssd_paths = {
+        "sm90": {"serve_mamba2": ssd_launches["ssd"]},
+        "simt": {"serve_jamba": families["jamba-v0.1-52b"]["launches"]["ssd"],
+                 "decode_check_jamba": families["decode_simt"], "f32_checks_mamba2": ssd_checks}}
+    for name, kind, src in (("ssd_scan", "sm90", "ssd_scan_sm90.cu"),
+                            ("ssd_scan_simt", "simt", "ssd_scan.cu")):
         t = ssd_timing[kind]
-        kernels.append({
+        entries.append({
             "name": name, "route": "cuda", "source": SSD_SRC + src, "replaces": SSD_REPLACES,
-            "launches": count, "max_abs_err": t["max_abs_err"], "ms": t["kernel_ms"],
+            "launches": sum(ssd_paths[kind].values()), "launches_by_path": ssd_paths[kind],
+            "shape": t["shape"], "max_abs_err": t["max_abs_err"], "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "roofline_share": t["roofline_share"], "dtype": t["dtype"],
-            **({"passes": t["passes"]} if "passes" in t else {})})
-    emit({"kernels": kernels})
+            **({"passes": t["passes"]} if "passes" in t else {}),
+            **({"f32_main_shape": {k: ssd_timing["simt_f32"][k] for k in (
+                "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by")}}
+               if kind == "simt" else {})})
+    emit({"kernels": entries})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 1)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -9,7 +9,10 @@ from __future__ import annotations
 import importlib
 from typing import Tuple
 
-ARCHS: Tuple[str, ...] = ("llama3-8b", "mamba2-130m")
+ARCHS: Tuple[str, ...] = (
+    "llama3-8b", "mamba2-130m", "olmo-1b", "phi4-mini-3.8b", "yi-34b",
+    "olmoe-1b-7b", "jamba-v0.1-52b", "deepseek-v3-671b",
+)
 
 # The reference registry's archs, so that an unported one is told apart
 # from a name that does not exist at all.

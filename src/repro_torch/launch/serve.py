@@ -4,6 +4,8 @@
         --requests 8 --prompt-len 1024 --gen 32            # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
         --requests 8 --prompt-len 4096 --gen 32            # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --requests 8 --prompt-len 1024 --gen 32            # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 Counterpart of ``repro.launch.serve``, with the same flags plus ``--device``
@@ -96,30 +98,37 @@ def serve_wave(params, cfg: ModelConfig, tokens: torch.Tensor, gen: int) -> Dict
     }
 
 
+def serve(cfg: ModelConfig, requests: int, prompt_len: int, gen: int, seed: int,
+          device) -> Dict[str, Any]:
+    """One wave of ``cfg``: weights made on ``device`` from ``seed``, prompts
+    from ``seed + 1``, prefilled and decoded by ``serve_wave``. Returns the
+    wave's result with the config, weights and prompts."""
+    check_prompt_len(cfg, prompt_len)
+    params = serve_params_cast(init_params(cfg, seed, device, dtype=cfg.compute_dtype), cfg)
+    print(f"serving {cfg.name} ({cfg.n_params():,} params) on {device}, "
+          f"{requests} requests, prompt {prompt_len}, gen {gen}")
+
+    b, s = requests, prompt_len
+    tokens = make_prompts(cfg, b, s, seed + 1, device)
+    res = serve_wave(params, cfg, tokens, gen)
+    t_prefill, t_decode = res["prefill_s"], res["decode_s"]
+    steps = max(gen - 1, 1)
+    sample = res["tokens"].cpu().numpy()
+    print(f"prefill: {t_prefill*1e3:8.1f} ms  ({b*s/t_prefill:,.0f} tok/s)")
+    print(f"decode : {t_decode*1e3:8.1f} ms  "
+          f"({b*(gen-1)/max(t_decode,1e-9):,.0f} tok/s, "
+          f"{t_decode/steps*1e3:.1f} ms/step)")
+    print(f"sample : {sample[0, :12].tolist()}")
+    return {"cfg": cfg, "params": params, "prompts": tokens, **res}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    check_prompt_len(cfg, args.prompt_len)
-    params = serve_params_cast(
-        init_params(cfg, args.seed, device, dtype=cfg.compute_dtype), cfg)
-    print(f"serving {cfg.name} ({cfg.n_params():,} params) on {device}, "
-          f"{args.requests} requests, prompt {args.prompt_len}, gen {args.gen}")
-
-    b, s = args.requests, args.prompt_len
-    tokens = make_prompts(cfg, b, s, args.seed + 1, device)
-    res = serve_wave(params, cfg, tokens, args.gen)
-    t_prefill, t_decode = res["prefill_s"], res["decode_s"]
-    steps = max(args.gen - 1, 1)
-    gen = res["tokens"].cpu().numpy()
-    print(f"prefill: {t_prefill*1e3:8.1f} ms  ({b*s/t_prefill:,.0f} tok/s)")
-    print(f"decode : {t_decode*1e3:8.1f} ms  "
-          f"({b*(args.gen-1)/max(t_decode,1e-9):,.0f} tok/s, "
-          f"{t_decode/steps*1e3:.1f} ms/step)")
-    print(f"sample : {gen[0, :12].tolist()}")
-    return {"cfg": cfg, "params": params, "prompts": tokens, **res}
+    return serve(cfg, args.requests, args.prompt_len, args.gen, args.seed, device)
 
 
 def cli(argv: Optional[Sequence[str]] = None) -> None:

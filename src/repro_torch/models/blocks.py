@@ -7,10 +7,14 @@ the reference (whose checkpoints and caches keep that axis). Where the
 reference runs a segment as one ``lax.scan``, the port runs a Python loop over
 the leading axis; ``scan_layers`` and ``remat`` change nothing here.
 
-Ported so far: the dense family (attention + dense MLP, as in llama3) and the
-SSM family (Mamba-2 mixer, no MLP, as in mamba2). ``layer_spec`` raises
-``NotImplementedError`` for MLA and MoE layers, and so for the hybrid family
-(whose MLPs are MoE), and ``model.model_params`` for encdec and vlm.
+  llama3 / olmo / yi / phi4 : 1 segment, period [(attn, dense)]
+  olmoe                     : 1 segment, period [(attn, moe)]
+  deepseek-v3               : prefix 3x(mla, dense) + 58x(mla, moe)
+  jamba                     : 4x period-8 [7x(ssm, .) + 1x(attn, .)], moe on odd
+  mamba2                    : 1 segment, period [(ssm, none)]
+
+The encoder-decoder family (cross attention) waits for a later slice; its
+model refuses it in ``model.model_params``.
 """
 from __future__ import annotations
 
@@ -20,12 +24,12 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from . import attention as attn_mod
+from . import mla as mla_mod
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import apply_mlp, apply_norm, mlp_params, norm_params
 from .params import ParamBuilder, stacked, torch_dtype, tree_map
-
-PORTED_SPECS = (("attn", "dense"), ("ssm", "none"))
 
 
 @dataclass(frozen=True)
@@ -48,23 +52,28 @@ def layer_spec(cfg: ModelConfig, i: int) -> LayerSpec:
     mlp = cfg.mlp_kind(i)
     if cfg.family == "ssm":
         mlp = "none"
-    if (kind, mlp) not in PORTED_SPECS:
-        raise NotImplementedError(
-            f"{cfg.name}: layer {i} is {LayerSpec(kind, mlp)}; repro_torch runs only "
-            "attention + dense MLP and SSM layers so far")
     return LayerSpec(kind, mlp)
 
 
 def segments(cfg: ModelConfig) -> List[Segment]:
-    """The reference's search for the shortest period that repeats over the
-    whole stack: one ``stack`` segment of ``n_layers / period`` steps. (The
-    reference's dense ``prefix`` segment exists only for MoE models, which
-    ``layer_spec`` refuses.)"""
+    """The reference's segments: a ``prefix`` of the ``first_k_dense`` leading
+    dense layers of an MoE model, then one ``stack`` segment over the shortest
+    period that repeats over the rest."""
     specs = [layer_spec(cfg, i) for i in range(cfg.n_layers)]
-    for p in range(1, len(specs) + 1):
-        if len(specs) % p == 0 and all(specs[i] == specs[i % p] for i in range(len(specs))):
-            return [Segment("stack", len(specs) // p, tuple(specs[:p]))]
-    return []
+    segs: List[Segment] = []
+    start = 0
+    if cfg.moe is not None and cfg.moe.first_k_dense > 0:
+        k = cfg.moe.first_k_dense
+        if any(s != specs[0] for s in specs[:k]):
+            raise ValueError(f"{cfg.name}: the first {k} layers differ: {specs[:k]}")
+        segs.append(Segment("prefix", k, (specs[0],)))
+        start = k
+    rest = specs[start:]
+    for p in range(1, len(rest) + 1):
+        if len(rest) % p == 0 and all(rest[i] == rest[i % p] for i in range(len(rest))):
+            segs.append(Segment("stack", len(rest) // p, tuple(rest[:p])))
+            break
+    return segs
 
 
 # --------------------------------------------------------------------------- #
@@ -74,11 +83,13 @@ def layer_params(pb: ParamBuilder, cfg: ModelConfig, spec: LayerSpec):
     p: Dict[str, Any] = {"norm1": norm_params(pb, cfg)}
     if spec.kind == "attn":
         p["mix"] = attn_mod.attn_params(pb, cfg)
+    elif spec.kind == "mla":
+        p["mix"] = mla_mod.mla_params(pb, cfg)
     else:
         p["mix"] = ssm_mod.ssm_params(pb, cfg)
     if spec.mlp != "none":
         p["norm2"] = norm_params(pb, cfg)
-        p["mlp"] = mlp_params(pb, cfg)
+        p["mlp"] = moe_mod.moe_params(pb, cfg) if spec.mlp == "moe" else mlp_params(pb, cfg)
     return p
 
 
@@ -94,11 +105,16 @@ def segment_params(pb: ParamBuilder, cfg: ModelConfig, seg: Segment):
 # --------------------------------------------------------------------------- #
 def layer_cache_spec(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int):
     """{leaf: (shape, dtype)} of one layer's cache: k, v for attention; the
-    conv tail (compute dtype) and the f32 SSD state for an SSM layer."""
+    ``ckv`` and ``kpe`` latents for MLA; the conv tail (compute dtype) and
+    the f32 SSD state for an SSM layer."""
     dt = torch_dtype(cfg.compute_dtype)
     if spec.kind == "attn":
         kv = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
         return {"k": (kv, dt), "v": (kv, dt)}
+    if spec.kind == "mla":
+        m = cfg.mla
+        return {"ckv": ((batch, max_len, m.kv_lora_rank), dt),
+                "kpe": ((batch, max_len, m.qk_rope_dim), dt)}
     d_in, n_heads, conv_dim = ssm_mod.ssm_dims(cfg)
     s = cfg.ssm
     return {"conv": ((batch, s.d_conv - 1, conv_dim), dt),
@@ -124,17 +140,21 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
 def layer_forward(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
                   *, mode: str, positions=None, pos=None, cache=None,
                   attn_impl: str = "kernel"):
-    """One layer. Returns (x, new_cache_leaves).
+    """One layer. Returns (x, new_cache_leaves, aux_loss).
 
     ``attn_impl`` picks the mixer's implementation: ``"kernel"`` runs the
     hand-written kernel (flash attention, or the SSD scan), ``"chunked"``
     and ``"plain"`` run plain torch (an SSM layer runs ``ssd_chunked`` for
-    both). In decode an SSM layer writes its new conv window and state into
-    the given cache leaves in place, as attention writes its k and v.
+    both; an MLA layer runs ``chunked_attention`` under all three, see
+    ``mla``). In decode an SSM layer writes its new conv window and state
+    into the given cache leaves in place, as attention writes its k and v
+    and MLA its latents. ``aux_loss`` is the MoE load-balance loss of an MoE
+    layer, else a zero scalar.
     """
     attn_impl = attn_mod.ATTN_ALIASES.get(attn_impl, attn_impl)
     if attn_impl not in attn_mod.ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {attn_mod.ATTN_IMPLS}, not {attn_impl!r}")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: Dict[str, torch.Tensor] = {}
     h = apply_norm(p["norm1"], x, cfg)
     if spec.kind == "attn":
@@ -149,6 +169,14 @@ def layer_forward(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
                 attn_impl=attn_impl)
             if mode == "prefill":
                 new_cache.update(kv)
+    elif spec.kind == "mla":
+        if mode == "decode":
+            y, nckv, nkpe = mla_mod.mla_decode(p["mix"], h, cfg, cache["ckv"], cache["kpe"], pos)
+            new_cache.update(ckv=nckv, kpe=nkpe)
+        else:
+            y, latent = mla_mod.mla_forward(p["mix"], h, cfg, positions)
+            if mode == "prefill":
+                new_cache.update(latent)
     else:  # ssm
         if mode == "decode":
             y, nconv, nstate = ssm_mod.ssm_decode(p["mix"], h, cfg, cache["conv"],
@@ -163,8 +191,13 @@ def layer_forward(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
     x = x + y
     if spec.mlp != "none":
         h2 = apply_norm(p["norm2"], x, cfg)
-        x = x + apply_mlp(p["mlp"], h2, cfg)
-    return x, new_cache
+        if spec.mlp == "moe":
+            y2, a = moe_mod.moe_forward(p["mlp"], h2, cfg)
+            aux = aux + a
+        else:
+            y2 = apply_mlp(p["mlp"], h2, cfg)
+        x = x + y2
+    return x, new_cache, aux
 
 
 # --------------------------------------------------------------------------- #
@@ -174,12 +207,13 @@ def segment_forward(params, x: torch.Tensor, cfg: ModelConfig, seg: Segment,
                     *, mode: str, cache=None, **kw):
     """Run one segment: a loop over the stacked leading axis.
 
-    Returns (x, new_cache_or_None). In ``prefill`` the new cache is the
+    Returns (x, new_cache_or_None, aux). In ``prefill`` the new cache is the
     per-layer leaves stacked over the leading axis; in ``decode`` it is the
-    given cache, updated in place.
+    given cache, updated in place. ``aux`` sums the layers' MoE losses.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     steps = []
     for i in range(seg.n_steps):
         p_i = tree_map(lambda t: t[i], params)
@@ -187,11 +221,12 @@ def segment_forward(params, x: torch.Tensor, cfg: ModelConfig, seg: Segment,
         new_caches = {}
         for j, spec in enumerate(seg.specs):
             c = c_i[f"l{j}"] if c_i is not None else None
-            x, new_caches[f"l{j}"] = layer_forward(p_i[f"l{j}"], x, cfg, spec, mode=mode,
-                                                   cache=c, **kw)
+            x, new_caches[f"l{j}"], a = layer_forward(p_i[f"l{j}"], x, cfg, spec, mode=mode,
+                                                      cache=c, **kw)
+            aux = aux + a
         steps.append(new_caches)
     if mode == "train":
-        return x, None
+        return x, None, aux
     if mode == "decode":
-        return x, cache
-    return x, tree_map(lambda *xs: torch.stack(xs), *steps)
+        return x, cache, aux
+    return x, tree_map(lambda *xs: torch.stack(xs), *steps), aux

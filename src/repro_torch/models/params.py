@@ -69,6 +69,16 @@ def flatten_params(params) -> Dict[str, Any]:
     return dict(tree_items(params))
 
 
+def tree_like(template, flat: Dict[str, Any], prefix: str = "") -> dict:
+    """``template``'s nested dicts with each leaf taken from ``flat`` by its
+    path. Unlike :func:`unflatten` it keeps the empty sub-trees that
+    ``tree_items`` skips (the parameter-free ``nonparam_ln`` norms). (A plain
+    recursion: a nested function that calls itself would hold ``flat``, a
+    step's gradients, in a reference cycle until the garbage collector ran.)"""
+    return {k: tree_like(v, flat, f"{prefix}{k}/") if isinstance(v, dict) else flat[prefix + k]
+            for k, v in template.items()}
+
+
 def unflatten(flat: Dict[str, Any]) -> dict:
     tree: dict = {}
     for path, leaf in flat.items():
@@ -157,7 +167,8 @@ def params_from_flat(flat: Dict[str, np.ndarray], cfg, device) -> dict:
     """
     from .model import param_shapes
 
-    want = flatten_params(param_shapes(cfg))
+    shapes = param_shapes(cfg)
+    want = flatten_params(shapes)
     missing = sorted(set(want) - set(flat))
     extra = sorted(set(flat) - set(want))
     if missing or extra:
@@ -172,4 +183,4 @@ def params_from_flat(flat: Dict[str, np.ndarray], cfg, device) -> dict:
         if arr.dtype != want_np:
             raise ValueError(f"{path}: dtype {arr.dtype}, want {want_np}")
         out[path] = torch.from_numpy(np.array(arr, order="C")).to(device)
-    return unflatten(out)
+    return tree_like(shapes, out)

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.models import ModelConfig
 from repro_torch.models.model import loss_fn
-from repro_torch.models.params import tree_items, unflatten
+from repro_torch.models.params import tree_items, tree_like
 
 from .optimizer import AdamConfig, adam_update
 from .state import TrainState
@@ -34,11 +34,11 @@ class TrainConfig:
     attn_impl: str = "chunked"
 
 
-def _loss_and_grads(paths, leaves, cfg: ModelConfig, batch, tcfg: TrainConfig
+def _loss_and_grads(params, paths, leaves, cfg: ModelConfig, batch, tcfg: TrainConfig
                     ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
     tracked = [p.detach().requires_grad_(True) for p in leaves]
     with torch.enable_grad():
-        loss, metrics = loss_fn(unflatten(dict(zip(paths, tracked))), cfg, batch,
+        loss, metrics = loss_fn(tree_like(params, dict(zip(paths, tracked))), cfg, batch,
                                 attn_impl=tcfg.attn_impl)
         grads = torch.autograd.grad(loss, tracked)
     return list(grads), {k: v.detach() for k, v in metrics.items()}
@@ -47,7 +47,7 @@ def _loss_and_grads(paths, leaves, cfg: ModelConfig, batch, tcfg: TrainConfig
 def _grads_and_metrics(params, cfg: ModelConfig, batch, tcfg: TrainConfig):
     paths, leaves = zip(*tree_items(params))
     if tcfg.grad_accum <= 1:
-        grads, metrics = _loss_and_grads(paths, leaves, cfg, batch, tcfg)
+        grads, metrics = _loss_and_grads(params, paths, leaves, cfg, batch, tcfg)
     else:
         # microbatch accumulation over the (global) batch's leading dim, in
         # float32, then the mean; metrics are the last microbatch's
@@ -56,7 +56,7 @@ def _grads_and_metrics(params, cfg: ModelConfig, batch, tcfg: TrainConfig):
                  for k, v in batch.items()}
         grads = None
         for i in range(n):
-            g, metrics = _loss_and_grads(paths, leaves, cfg,
+            g, metrics = _loss_and_grads(params, paths, leaves, cfg,
                                          {k: v[i] for k, v in micro.items()}, tcfg)
             if grads is None:
                 grads = [x.to(torch.float32) for x in g]
@@ -64,7 +64,7 @@ def _grads_and_metrics(params, cfg: ModelConfig, batch, tcfg: TrainConfig):
                 for acc, x in zip(grads, g):
                     acc.add_(x.to(torch.float32))
         grads = [acc.div_(n) for acc in grads]
-    return unflatten(dict(zip(paths, grads))), metrics
+    return tree_like(params, dict(zip(paths, grads))), metrics
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamConfig,
