@@ -28,7 +28,7 @@ random weights:
   attention on the ``sm90`` flash-attention kernel, the MoE layers through
   the reference's ``scatter`` dispatch); ``jamba-v0.1-52b`` cut to its
   first period of 8 layers (one attention layer on ``sm90``, seven SSM
-  layers on the ``simt`` SSD kernel at d_state 16, MoE on odd layers), and
+  layers on the ``sm90`` SSD kernel at d_state 16, MoE on odd layers), and
   decode against forward in float32 at 2 layers; ``deepseek-v3-671b`` cut
   to its 3 dense layers and one MLA + MoE layer, without the MTP head
   (serving never reads it), which launches no hand kernel (MLA attends at
@@ -159,11 +159,11 @@ MLA_CHECK_BATCH, MLA_CHECK_SEQ = 2, 256
 # (b, s, nh, p, g, n, chunk, dtype): tests/test_kernels.py SSD_CASES, the
 # chunks of the decode check's 17-token forward and 16-token prefill (simt),
 # the sm90 kernel's cases of tests/test_torch_ssd_passes.py (one chunk of 64
-# at n 64 and n 128, chunks of 128 and 256 over several chunks, g 2 with
-# nh 8), jamba's SSM layers in its serve wave (bf16, p 64, n 16, 128 heads:
-# simt), then the main path's shape in bf16 (sm90) and float32 (simt); x, B,
-# C are views into one conv output, as the model passes them. Each case runs
-# on the kernel ops.variant names.
+# at n 64, n 128 and n 16, chunks of 128 and 256 over several chunks, g 2
+# with nh 8), jamba's SSM layers in its serve wave (bf16, p 64, n 16, 128
+# heads: sm90), then the main path's shape in bf16 (sm90) and float32
+# (simt); x, B, C are views into one conv output, as the model passes them.
+# Each case runs on the kernel ops.variant names.
 SSD_CASES = [
     (2, 128, 8, 32, 1, 16, 64, torch.float32),
     (1, 256, 4, 16, 2, 8, 32, torch.float32),
@@ -176,6 +176,7 @@ SSD_CASES = [
     (2, 512, 4, 64, 1, 128, 128, torch.bfloat16),
     (2, 1024, 4, 64, 1, 128, 256, torch.bfloat16),
     (2, 512, 8, 64, 2, 64, 128, torch.bfloat16),
+    (1, 64, 4, 64, 1, 16, 64, torch.bfloat16),
     (FAMILY_REQUESTS, FAMILY_PROMPT_LEN, 128, 64, 1, 16, 256, torch.bfloat16),
 ]
 JAMBA_SSD = SSD_CASES[-1]
@@ -186,6 +187,9 @@ MAIN_SSD_F32 = MAIN_SSD[:7] + (torch.float32,)
 # long, a quarter of its blocks) and 4 (four times the blocks).
 SSD_RATE_CASES = [(2, 16384) + MAIN_SSD[2:], (32, 1024) + MAIN_SSD[2:]]
 SSD_PASSES = ("chunk_state", "state_pass", "chunk_scan")
+# The sm90 passes' heads per block (pass 1, pass 3) before d_state 16: timed
+# beside the wrapper's own at both sm90 shapes.
+SSD_OLD_HEADS = (4, 8)
 
 # (b, s, t, h, kh, d, causal, dtype): the shapes of tests/test_kernels.py
 # FA_CASES, two ragged cases, the sm90 kernel's cases of
@@ -796,7 +800,7 @@ def phase_families(kernels, serve_cli, engine, model_mod):
                        "params)")
             cfg = dataclasses.replace(cfg, mtp_depth=mtp)
         mla = cfg.mla is not None
-        variants = {"fa": "sm90", "ssd": "simt"}
+        variants = {"fa": "sm90", "ssd": "sm90"}
         launches, out, kept = phase_serve(kernels, serve_cli, engine, cfg, FAMILY_REQUESTS,
                                           FAMILY_PROMPT_LEN, FAMILY_GEN, variants,
                                           compare_plain=not mla, keep=mla, cut=cut or None)
@@ -844,16 +848,17 @@ def phase_f32_prefill_check(engine, model_mod, ops, arch, variant):
     return launches
 
 
-def ssd_inputs(case, seed):
+def ssd_inputs(case, seed, pad=0):
     """x, dt, A, B, C for a case: x, B and C as views into one (b, s, conv_dim)
-    tensor, as the model hands them to the kernel."""
+    tensor, as the model hands them to the kernel; ``pad`` columns more a row
+    (4 makes bf16 rows a multiple of 8 bytes, not 16, which TMA cannot read)."""
     b, s, nh, p, g, n, chunk, dt = case
     gen = torch.Generator(device="cuda").manual_seed(seed)
     d_in = nh * p
-    xbc = (torch.randn(b, s, d_in + 2 * g * n, generator=gen, device="cuda") * 0.5).to(dt)
+    xbc = (torch.randn(b, s, d_in + 2 * g * n + pad, generator=gen, device="cuda") * 0.5).to(dt)
     x = xbc[..., :d_in].reshape(b, s, nh, p)
     B = xbc[..., d_in:d_in + g * n].reshape(b, s, g, n)
-    C = xbc[..., d_in + g * n:].reshape(b, s, g, n)
+    C = xbc[..., d_in + g * n:d_in + 2 * g * n].reshape(b, s, g, n)
     dtv = torch.nn.functional.softplus(torch.randn(b, s, nh, generator=gen, device="cuda"))
     A = -torch.exp(torch.randn(nh, generator=gen, device="cuda") * 0.3)
     return x, dtv, A, B, C
@@ -922,12 +927,57 @@ def ssd_pass_times(ssd_ops, case, x, dtv, A, B, C):
     return out
 
 
+def ssd_passes_vs_plain(ssd_ops, ssd_ref, case):
+    """Each sm90 pass at ``case`` against its own plain pass: chunk states and
+    cum from the same inputs, the starting states from an init state, the
+    outputs from the same bf16 starting states."""
+    x, dtv, A, B, C = ssd_inputs(case, seed=9)
+    b, s, nh, p, g, n, c = case[:7]
+    init = torch.randn(b, nh, p, n, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(10))
+    tol = SSD_STATE_TOL[torch.bfloat16]
+    states, cum = ssd_ops.chunk_state(x, dtv, A, B, c)
+    w_states, w_cum = ssd_ref.chunk_state_reference(x, dtv, A, B, c)
+    h_in, final = ssd_ops.state_pass(w_states, w_cum, c, init)
+    w_h_in, w_final = ssd_ref.state_pass_reference(w_states, w_cum, c, init)
+    h16 = w_h_in.to(torch.bfloat16)
+    y = ssd_ops.chunk_scan(x, dtv, B, C, w_cum, h16, c)
+    wy = ssd_ref.chunk_scan_reference(x, dtv, B, C, w_cum, h16.float(), c)
+    torch.cuda.synchronize()
+
+    def close(got, want, t):
+        return float((got.float() - want).abs().max()), bool(
+            ((got.float() - want).abs() <= t + t * want.abs()).all())
+
+    passes = {}
+    for name, (err, ok), t in (
+            ("chunk_state cum", close(cum, w_cum, SSD_STATE_TOL[torch.float32]),
+             SSD_STATE_TOL[torch.float32]),
+            ("chunk_state states", close(states, w_states, tol), tol),
+            ("state_pass h_in", close(h_in, w_h_in, tol), tol),
+            ("state_pass final", close(final, w_final, SSD_STATE_TOL[torch.float32]),
+             SSD_STATE_TOL[torch.float32])):
+        passes[name] = {"max_abs_err": err, "tol": t, "ok": ok}
+        check(ok, f"sm90 {name} at {list(case[:7])} disagrees with its plain pass: "
+                  f"{passes[name]}")
+    y_err = float((y.float() - wy.float()).abs().max())
+    y_scale = float(wy.float().abs().max())
+    passes["chunk_scan y"] = {"max_abs_err": y_err, "y_scale": y_scale,
+                              "y_tol": SSD_Y_TOL[torch.bfloat16],
+                              "ok": y_err / y_scale < SSD_Y_TOL[torch.bfloat16]}
+    check(passes["chunk_scan y"]["ok"],
+          f"sm90 chunk_scan at {list(case[:7])} disagrees: {passes['chunk_scan y']}")
+    emit({"phase": "ssd_passes_vs_plain", "shape": list(case[:7]), "passes": passes})
+
+
 def phase_ssd_kernel(ssd_ops, ssd_ref):
     """Every listed shape on the kernel the variant table names, against the
-    plain version, and the init-state continuation; each sm90 pass against
-    its own plain pass at the main shape; then the times of both kernels at
-    the main shape (sm90 in bf16 with each pass beside its bound, simt in
-    float32), and of the sm90 kernel at two other cuts of the same tokens."""
+    plain version, jamba's shape on simt too (in views TMA cannot read), and
+    the init-state continuation; each sm90 pass against its own plain pass
+    at mamba2's and jamba's shapes; then the kernels' times (sm90 at both
+    shapes in bf16, each pass beside its bound; simt at mamba2's in float32
+    and at jamba's), and of the sm90 kernel at two other cuts of mamba2's
+    tokens."""
     rows = []
 
     def compare(case, got, want, what, kind):
@@ -961,6 +1011,19 @@ def phase_ssd_kernel(ssd_ops, ssd_ref):
         del x, dtv, A, B, C, got
     check(rows[-2]["variant"] == "sm90" and rows[-1]["variant"] == "simt",
           "the main shape must run on sm90 in bf16 and on simt in float32")
+    jamba_row = rows[len(SSD_CASES) - 1]
+    check(jamba_row["variant"] == "sm90", "jamba's SSD shape must run on sm90")
+    # jamba's shape on simt, the kernel its SSM layers ran on before sm90 took
+    # n 16: the same inputs in rows padded by 4 bf16, which TMA cannot read
+    x, dtv, A, B, C = ssd_inputs(JAMBA_SSD, seed=200 + len(SSD_CASES) - 1, pad=4)
+    kind = ssd_ops.variant(JAMBA_SSD[7], JAMBA_SSD[3], JAMBA_SSD[5], JAMBA_SSD[6],
+                           ssd_ops.tma_aligned(x, B, C))
+    check(kind == "simt", f"jamba's shape in unaligned views runs on {kind}, want simt")
+    compare(JAMBA_SSD, ssd_ops.ssd_scan(x, dtv, A, B, C, chunk=JAMBA_SSD[6]),
+            ssd_ref.ssd_reference(x, dtv, A, B, C, chunk=JAMBA_SSD[6]),
+            "kernel vs plain, unaligned views", kind)
+    jamba_simt_row = rows[-1]
+    del x, dtv, A, B, C
     # The continuation of tests/test_kernels.py: two halves, the second from
     # the first one's final state, against the whole sequence.
     case = (1, 128, 4, 16, 1, 8, 32, torch.float32)
@@ -974,59 +1037,28 @@ def phase_ssd_kernel(ssd_ops, ssd_ref):
     compare(case, (y2, h2), (wy[:, half:], wh), "init-state continuation", "simt")
     emit({"phase": "ssd_kernel_vs_plain", "cases": rows})
 
-    # Each sm90 pass against its own plain pass at the main shape (the
-    # starting states from an init state; pass 3 given the same bf16 states).
-    x, dtv, A, B, C = ssd_inputs(MAIN_SSD, seed=9)
-    c = MAIN_SSD[6]
-    b, s, nh, p, g, n = MAIN_SSD[:6]
-    init = torch.randn(b, nh, p, n, device="cuda",
-                       generator=torch.Generator(device="cuda").manual_seed(10))
-    tol = SSD_STATE_TOL[torch.bfloat16]
-    states, cum = ssd_ops.chunk_state(x, dtv, A, B, c)
-    w_states, w_cum = ssd_ref.chunk_state_reference(x, dtv, A, B, c)
-    h_in, final = ssd_ops.state_pass(w_states, w_cum, c, init)
-    w_h_in, w_final = ssd_ref.state_pass_reference(w_states, w_cum, c, init)
-    h16 = w_h_in.to(torch.bfloat16)
-    y = ssd_ops.chunk_scan(x, dtv, B, C, w_cum, h16, c)
-    wy = ssd_ref.chunk_scan_reference(x, dtv, B, C, w_cum, h16.float(), c)
-    torch.cuda.synchronize()
+    # Each sm90 pass against its own plain pass at mamba2's and jamba's shapes
+    # (the starting states from an init state; pass 3 given the same bf16
+    # states).
+    for case in (MAIN_SSD, JAMBA_SSD):
+        ssd_passes_vs_plain(ssd_ops, ssd_ref, case)
 
-    def close(got, want, t):
-        return float((got.float() - want).abs().max()), bool(
-            ((got.float() - want).abs() <= t + t * want.abs()).all())
-
-    passes = {}
-    for name, (err, ok), t in (
-            ("chunk_state cum", close(cum, w_cum, SSD_STATE_TOL[torch.float32]),
-             SSD_STATE_TOL[torch.float32]),
-            ("chunk_state states", close(states, w_states, tol), tol),
-            ("state_pass h_in", close(h_in, w_h_in, tol), tol),
-            ("state_pass final", close(final, w_final, SSD_STATE_TOL[torch.float32]),
-             SSD_STATE_TOL[torch.float32])):
-        passes[name] = {"max_abs_err": err, "tol": t, "ok": ok}
-        check(ok, f"sm90 {name} disagrees with its plain pass: {passes[name]}")
-    y_err = float((y.float() - wy.float()).abs().max())
-    y_scale = float(wy.float().abs().max())
-    passes["chunk_scan y"] = {"max_abs_err": y_err, "y_scale": y_scale,
-                              "y_tol": SSD_Y_TOL[torch.bfloat16],
-                              "ok": y_err / y_scale < SSD_Y_TOL[torch.bfloat16]}
-    check(passes["chunk_scan y"]["ok"], f"sm90 chunk_scan disagrees: {passes['chunk_scan y']}")
-    emit({"phase": "ssd_passes_vs_plain", "shape": list(MAIN_SSD[:7]), "passes": passes})
-    del states, cum, w_states, w_cum, h_in, final, w_h_in, w_final, h16, y, wy
-
-    # each kernel's times at its main-path shape: sm90 at mamba2's, simt at
-    # jamba's (bf16, n 16) and at mamba2's in float32
+    # each kernel's times at its main-path shapes: sm90 at mamba2's and
+    # jamba's (bf16, n 16), simt at mamba2's in float32 and at jamba's in the
+    # unaligned views
     timings = {}
-    check(rows[len(SSD_CASES) - 1]["variant"] == "simt", "jamba's SSD shape must run on simt")
-    for key, case, row in (("sm90", MAIN_SSD, rows[len(SSD_CASES)]),
-                           ("simt", JAMBA_SSD, rows[len(SSD_CASES) - 1]),
-                           ("simt_f32", MAIN_SSD_F32, rows[len(SSD_CASES) + 1])):
-        x, dtv, A, B, C = ssd_inputs(case, seed=8)
+    for key, case, row, pad in (("sm90", MAIN_SSD, rows[len(SSD_CASES)], 0),
+                                ("sm90_jamba", JAMBA_SSD, jamba_row, 0),
+                                ("simt_f32", MAIN_SSD_F32, rows[len(SSD_CASES) + 1], 0),
+                                ("simt_jamba", JAMBA_SSD, jamba_simt_row, 4)):
+        x, dtv, A, B, C = ssd_inputs(case, seed=8, pad=pad)
         chunk = case[6]
+        kind = row["variant"]
+        check(ssd_ops.variant(case[7], case[3], case[5], chunk,
+                              ssd_ops.tma_aligned(x, B, C)) == kind, f"{key} is not {kind}")
         kernel_ms = time_ms(lambda: ssd_ops.ssd_scan(x, dtv, A, B, C, chunk=chunk))
         plain_ms = time_ms(lambda: ssd_ref.ssd_reference(x, dtv, A, B, C, chunk=chunk))
         bound_s, bound_by, flops, nbytes = ssd_bound(case)
-        kind = row["variant"]
         timings[key] = {
             "phase": "ssd_kernel_timing", "variant": kind, "shape": list(case[:7]),
             "dtype": row["dtype"], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
@@ -1035,8 +1067,21 @@ def phase_ssd_kernel(ssd_ops, ssd_ref):
             "mbytes": nbytes / 1e6, "kernel_tflops": flops / (kernel_ms * 1e-3) / 1e12,
             "roofline_share": bound_s * 1e3 / kernel_ms, "vs_plain": plain_ms / kernel_ms,
             "max_abs_err": row["max_abs_err"]}
+        if pad:
+            timings[key]["views"] = f"rows padded by {pad} bf16: not TMA-aligned"
         if kind == "sm90":
             timings[key]["passes"] = ssd_pass_times(ssd_ops, case, x, dtv, A, B, C)
+            # the heads per block (pass 1, pass 3) the wrapper uses, beside
+            # the 4 and 8 it used before d_state 16 came to sm90
+            used = (ssd_ops.STATE_HEADS, ssd_ops.SCAN_HEADS)
+            ssd_ops.STATE_HEADS, ssd_ops.SCAN_HEADS = SSD_OLD_HEADS
+            try:
+                old_ms = time_ms(lambda: ssd_ops.ssd_scan(x, dtv, A, B, C, chunk=chunk))
+            finally:
+                ssd_ops.STATE_HEADS, ssd_ops.SCAN_HEADS = used
+            timings[key]["heads_per_block"] = {"used": list(used), "kernel_ms": kernel_ms,
+                                               "old": list(SSD_OLD_HEADS),
+                                               "kernel_ms_at_old": old_ms}
         del x, dtv, A, B, C
         torch.cuda.empty_cache()
         emit(timings[key])
@@ -2294,12 +2339,15 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
     ssd_paths = {
-        "sm90": {"serve_mamba2": ssd_launches["ssd"]},
-        "simt": {"serve_jamba": families["jamba-v0.1-52b"]["launches"]["ssd"],
-                 "decode_check_jamba": families["decode_simt"], "f32_checks_mamba2": ssd_checks}}
-    for name, kind, src in (("ssd_scan", "sm90", "ssd_scan_sm90.cu"),
-                            ("ssd_scan_simt", "simt", "ssd_scan.cu")):
-        t = ssd_timing[kind]
+        "sm90": {"serve_mamba2": ssd_launches["ssd"],
+                 "serve_jamba": families["jamba-v0.1-52b"]["launches"]["ssd"]},
+        "simt": {"decode_check_jamba": families["decode_simt"], "f32_checks_mamba2": ssd_checks}}
+    # sm90 at mamba2's shape with jamba's beside it; simt at mamba2's in
+    # float32 (its checks' dtype) with jamba's bf16 shape beside it
+    for name, kind, src, key, other in (
+            ("ssd_scan", "sm90", "ssd_scan_sm90.cu", "sm90", "sm90_jamba"),
+            ("ssd_scan_simt", "simt", "ssd_scan.cu", "simt_f32", "simt_jamba")):
+        t, o = ssd_timing[key], ssd_timing[other]
         entries.append({
             "name": name, "route": "cuda", "source": SSD_SRC + src, "replaces": SSD_REPLACES,
             "launches": sum(ssd_paths[kind].values()), "launches_by_path": ssd_paths[kind],
@@ -2307,9 +2355,10 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "roofline_share": t["roofline_share"], "dtype": t["dtype"],
             **({"passes": t["passes"]} if "passes" in t else {}),
-            **({"f32_main_shape": {k: ssd_timing["simt_f32"][k] for k in (
-                "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by")}}
-               if kind == "simt" else {})})
+            "jamba_shape": {k: o[k] for k in ("shape", "dtype", "kernel_ms", "plain_ms",
+                                              "bound_ms", "bound_by", "max_abs_err",
+                                              "passes", "heads_per_block", "views")
+                            if k in o}})
     emit({"kernels": entries})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 1)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -128,6 +128,22 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr, uint32_t lbo, uin
   return d;
 }
 
+// The same for a tile written by TMA with 32-byte swizzle: rows of 32 bytes
+// (16 bf16), a 256-byte pattern of 8 rows that starts at a 256-aligned
+// address. K-major (K = 16 in the row): one k16 step is the whole row, lbo
+// unused, sbo = 256 from one 8-row group to the next. MN-major (16 elements
+// of M/N in the row, K across rows): lbo = the stride from one 16-element MN
+// chunk to the next, sbo = 256 from one 8-row K group to the next; a k16
+// step adds 16 rows = 512 bytes.
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  uint64_t d = 0;
+  d |= static_cast<uint64_t>((saddr & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
+  d |= static_cast<uint64_t>(3) << 62;  // layout type 3: 32-byte swizzle
+  return d;
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -172,6 +188,20 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t des
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D (64 x 16, f32) += A (64 x 16) * B (16 x 16), both bf16 in shared memory,
+// K-major by default, MN-major where TA or TB is 1.
+template <int TA = 0, int TB = 0>
+__device__ __forceinline__ void wgmma_ss_m64n16k16(float (&d)[8], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
@@ -252,16 +282,18 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A 4-D map over a bf16 tensor: dims innermost first (the innermost with
-// unit stride), byte strides of the outer three, boxes of box[0..3] with
-// 128-byte swizzle (box[0] is 64: one 128-byte row). Returns false if the
-// driver refuses it (a stride or address that is not a multiple of 16).
+// unit stride), byte strides of the outer three, boxes of box[0..3] with the
+// given swizzle: 128-byte (box[0] is 64, one 128-byte row) or 32-byte
+// (box[0] is 16, one 32-byte row). Returns false if cuTensorMapEncodeTiled
+// refuses it (a stride or address that is not a multiple of 16).
 inline bool make_map_bf16(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[4],
-                          const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4]) {
+                          const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4],
+                          CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }

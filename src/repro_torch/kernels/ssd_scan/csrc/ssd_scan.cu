@@ -12,6 +12,11 @@
 // Head h reads group h / (nh / g) of B and C. An optional init state comes in,
 // the final state goes out in float32, y in x's dtype.
 //
+// No serving path reaches this kernel: mamba2-130m's and jamba-v0.1-52b's
+// SSM layers (bf16, d_state 128 and 16) run on ssd_scan_sm90.cu. This one
+// takes float32 (the models' float32 checks), other head dims and d_states,
+// ragged chunks and views TMA cannot read.
+//
 // Bound on an H100 SXM at the serving main path (mamba2-130m prefill: b 8,
 // s 4096, nh 24, p 64, g 1, n 128, c 256, bf16 x / B / C; 24 launches per
 // prefill, one per layer):

@@ -1,6 +1,6 @@
 // Mamba-2 SSD chunked scan for NVIDIA Hopper (sm_90a) on the tensor cores:
-// bf16 x, B, C at head dim 64, d_state 64 or 128, chunks of 64, 128 or 256.
-// Plain C entry points, one per pass: ssd_chunk_state_sm90,
+// bf16 x, B, C at head dim 64, d_state 16, 64 or 128, chunks of 64, 128 or
+// 256. Plain C entry points, one per pass: ssd_chunk_state_sm90,
 // ssd_state_pass_sm90, ssd_chunk_scan_sm90 (ops.py calls the three in turn
 // for the "sm90" variant; ssd_scan.cu keeps the CUDA-core kernel, "simt").
 //
@@ -14,11 +14,15 @@
 // Head h reads group h / (nh / g) of B and C; y in bf16, the final state in
 // float32.
 //
-// Bound on an H100 SXM at the serving main path (mamba2-130m prefill: b 8,
-// s 4096, nh 24, p 64, g 1, n 128, c 256; 24 launches per prefill wave): x
-// read and y written (100.7 MB each), B and C (16.8 MB), dt (3.1 MB), the
-// final state (6.3 MB): ~227 MB, 0.0679 ms at 3.35 TB/s; ~40 GFLOP of
-// products, 0.040 ms at the bf16 peak. So bytes bound it.
+// Bound on an H100 SXM at the two serving shapes, both bytes:
+//   mamba2-130m prefill (b 8, s 4096, nh 24, p 64, g 1, n 128, c 256; 24
+//   launches a wave): x read and y written (100.7 MB each), B and C (16.8
+//   MB), dt (3.1 MB), the final state (6.3 MB): ~227 MB, 0.0679 ms at 3.35
+//   TB/s; ~40 GFLOP of products, 0.040 ms at the bf16 peak.
+//   jamba-v0.1-52b prefill (b 8, s 1024, nh 128, p 64, g 1, n 16, c 256; 7
+//   launches a wave): x and y (134.2 MB each), B and C (0.26 MB each), dt
+//   and the final state (4.2 MB each): ~277 MB, 0.0828 ms; ~22 GFLOP,
+//   0.022 ms.
 //
 // Design. The chunk-parallel split of `ssd_chunked`, each step a kernel:
 //   1. ssd_fwd_chunk_state, grid (head tiles, chunks, batch), one warpgroup:
@@ -38,8 +42,8 @@
 //      producer warpgroup that gives its registers to them (setmaxnreg 40 /
 //      232) and issues every copy from one thread. Each consumer forms S_j =
 //      C_i B_j^T for every column tile j <= i ONCE on wgmma (both K-major)
-//      and keeps it in f32 registers for all the block's heads (at g = 1 the
-//      heads of a tile share it, instead of once per head). Per head, from a
+//      and keeps it in f32 registers for all the block's heads (up to 32
+//      heads of a group share it, instead of once per head). Per head, from a
 //      two-stage ring (x tiles, starting state, cum, dt): y = exp(cum_i)
 //      C_i state^T on wgmma (K n), then per column tile P = S o exp(cum_i -
 //      cum_j) o dt_j, masked to j <= i BEFORE the exponential, split into
@@ -50,12 +54,34 @@
 //      (0.1 x max |logit|); hi + lo carries ~16 bits of P for twice the P x
 //      products (16 GFLOP more at the main shape, ~62 issued in all). y is
 //      stored in bf16 from registers.
+//
+// Along n (NBox). At n 64 and 128, B, C and the starting states come in
+// boxes of 64 columns, 128-byte rows with 128-byte swizzle, a k16 step 32
+// bytes inside the row. At n 16 a 64-column box would be three quarters
+// zeros (TMA fills past the tensor's edge): 4x the n-products, 4x the shared
+// memory of C, B and the states, and pass 1 would store 64-wide states.
+// Instead a row is 16 bf16 = 32 bytes, TMA boxes are 16 columns with
+// 32-byte swizzle, and the wgmma descriptors say so (desc_sw32: layout type
+// 3, 8-row groups 256 bytes apart). Pass 1's product becomes m64n16k16 (8
+// accumulator floats a thread; B MN-major, a k16 step 16 rows = 512 bytes);
+// pass 3's C_i B_j^T and C_i state^T are one k16 step each, in place of 4
+// or 8. The C, B and state tiles shrink from 8-16 KB to 2 KB. The freed
+// shared memory buys nothing yet: registers (two 232-register consumers)
+// keep one block of pass 3 per SM, and a ring of four stages read the same
+// on the card as two (pass 3's consumers pace it, not its copies), so the
+// ring stays at two. What helps at jamba's 128 heads to a group is fewer,
+// longer blocks: 16 heads a block in pass 1 and 32 in pass 3 (S_j formed
+// once per 32 heads; ops.STATE_HEADS / SCAN_HEADS, level with 4 and 8 at
+// mamba2's 24). The P x products, the mask and the exponentials do not
+// depend on n and are unchanged.
+//
 // The split moves more bytes than the bound counts: x is read by passes 1
 // and 3 (pass 3 reads each x tile once per row tile at or below it, mostly
-// from L2), the f32 chunk states (100.7 MB at the main shape) are written,
-// read, and written again as 50 MB of bf16 starting states, read once per
-// row tile. Not done yet: fusing passes 1 and 2, a TMA-store epilogue,
-// overlapping one column tile's exponentials with the last one's products.
+// from L2), the f32 chunk states (100.7 MB at mamba2's shape, 16.8 MB at
+// jamba's) are written, read, and written again as bf16 starting states,
+// read once per row tile. Not done yet: fusing passes 1 and 2, a TMA-store
+// epilogue, overlapping one column tile's exponentials with the last one's
+// products.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -87,6 +113,33 @@ __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   return *reinterpret_cast<uint32_t*>(&pair);
 }
 
+// B, C and the starting states along n: boxes of BOX columns, one row of a
+// box ROWB bytes. n 16: one box of 32-byte rows, 32-byte swizzle; n 64 / 128:
+// boxes of 64 columns in 128-byte rows, 128-byte swizzle.
+template <int N>
+struct NBox {
+  static_assert(N == 16 || N == 64 || N == 128, "d_state 16, 64 or 128");
+  static constexpr int BOX = N == 16 ? 16 : 64;
+  static constexpr int KB = N / BOX;     // boxes along n
+  static constexpr int ROWB = BOX * 2;
+};
+
+// Descriptor of an n-wide operand tile laid out as NBox<N> says; lbo as the
+// swizzle's own helper takes it (unused for the K-major C, B and states).
+template <int N>
+__device__ __forceinline__ uint64_t desc_n(uint32_t saddr, uint32_t lbo) {
+  if constexpr (N == 16) return desc_sw32(saddr, lbo, 256);
+  else return desc_sw128(saddr, lbo, 1024);
+}
+
+// Start-address step (in 16-byte units) of k16 step kk along K = n of a
+// K-major NBox<N> tile of 64 rows: n 16 is a single step; at n 64 / 128 a
+// step is 32 bytes inside a 128-byte row, the next 64 columns one box on.
+template <int N>
+__device__ __forceinline__ uint32_t koff_n(int kk) {
+  return N == 16 ? 0u : static_cast<uint32_t>(((kk / 4) * TILE_BYTES + (kk % 4) * 32) >> 4);
+}
+
 // (a, b) as the sum of two bf16 pairs: hi = bf16(a, b), lo = bf16(the rest).
 // hi x + lo x carries ~16 bits of a and b into a product with bf16 x.
 __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
@@ -98,11 +151,11 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
 }
 
 // ---------------------------------------------------------------------------
-// Pass 1: chunk states. 128 threads; shared memory: B (N/64 boxes of CH rows),
-// x (CH rows), the weights w (CMAX floats), two mbarriers.
+// Pass 1: chunk states. 128 threads; shared memory: B (CH rows of n, in
+// NBox<N> boxes), x (CH rows), the weights w (CMAX floats), two mbarriers.
 // ---------------------------------------------------------------------------
 __host__ __device__ constexpr int state_smem(int N, int CH) {
-  return (N / 64 + 1) * CH * ROW + CMAX * 4 + 16 + 1024;
+  return N * 2 * CH + CH * ROW + CMAX * 4 + 16 + 1024;
 }
 
 template <int N>
@@ -117,8 +170,9 @@ ssd_fwd_chunk_state(const __grid_constant__ CUtensorMap tm_x,
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* gbase = smem_raw + (base - raw);
+  using NB = NBox<N>;
   const uint32_t sB = base;
-  const uint32_t xoff = (N / 64) * CH * ROW;
+  const uint32_t xoff = N * 2 * CH;   // a multiple of 1024 for CH >= 64
   const uint32_t sX = base + xoff;
   float* w = reinterpret_cast<float*>(gbase + xoff + CH * ROW);
   const uint32_t bar_b = smem_addr(w + CMAX), bar_x = bar_b + 8;
@@ -141,14 +195,15 @@ ssd_fwd_chunk_state(const __grid_constant__ CUtensorMap tm_x,
     tma_prefetch_map(&tm_b);
     mbar_arrive_expect_tx(bar_b, N * CH * 2);
 #pragma unroll
-    for (int q = 0; q < N / 64; ++q) tma_load_4d(sB + q * CH * ROW, &tm_b, bar_b, 64 * q, grp, t0, b);
+    for (int q = 0; q < NB::KB; ++q)
+      tma_load_4d(sB + q * CH * NB::ROWB, &tm_b, bar_b, NB::BOX * q, grp, t0, b);
     mbar_arrive_expect_tx(bar_x, CH * ROW);
     tma_load_4d(sX, &tm_x, bar_x, 0, h0, t0, b);
   }
   const int row_a = 16 * warp + lane / 4;   // p rows of the accumulator: row_a, row_a + 8
   const int cq = 2 * (lane % 4);
   const uint64_t da = desc_sw128(sX, CH * ROW, 1024);
-  const uint64_t db = desc_sw128(sB, CH * ROW, 1024);
+  const uint64_t db = desc_n<N>(sB, CH * NB::ROWB);   // MN-major: lbo from box to box
   uint4* xg = reinterpret_cast<uint4*>(gbase + xoff);
 
   for (int hh = 0; hh < HPB; ++hh) {
@@ -208,9 +263,11 @@ ssd_fwd_chunk_state(const __grid_constant__ CUtensorMap tm_x,
     float acc[N / 2];
     wgmma_fence();
     for (int kk = 0; kk < CH / 16; ++kk) {
-      const uint32_t off = (kk * 16 * ROW) >> 4;   // 16 rows of both MN-major operands
-      if constexpr (N == 128) wgmma_ss_m64n128k16<1, 1>(acc, da + off, db + off, kk > 0);
-      else wgmma_ss_m64n64k16<1, 1>(acc, da + off, db + off, kk > 0);
+      // 16 rows of both MN-major operands: 128-byte rows of x, NB::ROWB of B
+      const uint32_t ox = (kk * 16 * ROW) >> 4, ob = (kk * 16 * NB::ROWB) >> 4;
+      if constexpr (N == 128) wgmma_ss_m64n128k16<1, 1>(acc, da + ox, db + ob, kk > 0);
+      else if constexpr (N == 64) wgmma_ss_m64n64k16<1, 1>(acc, da + ox, db + ob, kk > 0);
+      else wgmma_ss_m64n16k16<1, 1>(acc, da + ox, db + ob, kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -274,7 +331,7 @@ struct ScanSmem {
   int cb, stage, x, st, cum, dt, bars, bytes;
   __host__ __device__ ScanSmem(int N, int CH) {
     const int nt = CH / TILE;
-    cb = (N / 64) * TILE_BYTES;                       // C_i, B_j or a state tile
+    cb = TILE * N * 2;                                // C_i, B_j or a state tile
     x = 0;                                            // offsets inside a stage
     st = nt * TILE_BYTES;
     cum = st + cb;
@@ -294,7 +351,7 @@ ssd_fwd_chunk_scan(const __grid_constant__ CUtensorMap tm_x,
                    const float* __restrict__ cum, const float* __restrict__ dtT,
                    __nv_bfloat16* __restrict__ y, int S, int NH, int G, int CH, int HPB,
                    long long syb, long long sys, long long syh) {
-  constexpr int KB = N / 64;   // 64-column boxes along n
+  using NB = NBox<N>;
   const ScanSmem L(N, CH);
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -347,13 +404,13 @@ ssd_fwd_chunk_scan(const __grid_constant__ CUtensorMap tm_x,
       mbar_arrive_expect_tx(full_cb, (rows + last + 1) * L.cb);
       for (int c = 0; c < rows; ++c)
 #pragma unroll
-        for (int q = 0; q < KB; ++q)
-          tma_load_4d(base + c * L.cb + q * TILE_BYTES, &tm_c, full_cb, 64 * q, grp,
+        for (int q = 0; q < NB::KB; ++q)
+          tma_load_4d(base + c * L.cb + q * TILE * NB::ROWB, &tm_c, full_cb, NB::BOX * q, grp,
                       t0 + TILE * (i0 + c), b);
       for (int j = 0; j <= last; ++j)
 #pragma unroll
-        for (int q = 0; q < KB; ++q)
-          tma_load_4d(sB + j * L.cb + q * TILE_BYTES, &tm_b, full_cb, 64 * q, grp,
+        for (int q = 0; q < NB::KB; ++q)
+          tma_load_4d(sB + j * L.cb + q * TILE * NB::ROWB, &tm_b, full_cb, NB::BOX * q, grp,
                       t0 + TILE * j, b);
       for (int hh = 0; hh < HPB; ++hh) {
         const int s = hh & 1, h = h0 + hh;
@@ -362,8 +419,9 @@ ssd_fwd_chunk_scan(const __grid_constant__ CUtensorMap tm_x,
         for (int j = 0; j <= last; ++j)
           tma_load_4d(stage(s) + L.x + j * TILE_BYTES, &tm_x, full(s), 0, h, t0 + TILE * j, b);
 #pragma unroll
-        for (int q = 0; q < KB; ++q)
-          tma_load_4d(stage(s) + L.st + q * TILE_BYTES, &tm_h, full(s), 64 * q, 0, h, b * NC + k);
+        for (int q = 0; q < NB::KB; ++q)
+          tma_load_4d(stage(s) + L.st + q * TILE * NB::ROWB, &tm_h, full(s), NB::BOX * q, 0, h,
+                      b * NC + k);
         const long long o = (static_cast<long long>(b) * NH + h) * S + t0;
         bulk_load(stage(s) + L.cum, cum + o, CH * 4, full(s));
         bulk_load(stage(s) + L.dt, dtT + o, CH * 4, full(s));
@@ -378,22 +436,19 @@ ssd_fwd_chunk_scan(const __grid_constant__ CUtensorMap tm_x,
   if (i > last) return;   // a chunk of one row tile: the second consumer has none
   const int ra = 16 * warp + lane / 4, rb = ra + 8;   // this thread's rows in the tile
   const int cq = 2 * (lane % 4);
-  const uint64_t dC = desc_sw128(base + wg * L.cb, 16, 1024);
+  const uint64_t dC = desc_n<N>(base + wg * L.cb, 16);
   mbar_wait(full_cb, 0);
 
-  // S_j = C_i B_j^T, j <= i: K-major operands, K = n in k16 steps of 32
-  // bytes inside a 128-byte row, the next 64 columns one box further on.
+  // S_j = C_i B_j^T, j <= i: K-major operands, K = n in k16 steps (koff_n).
   float sacc[4][32];
   wgmma_fence();
 #pragma unroll
   for (int j = 0; j < 4; ++j)
     if (j <= i) {
-      const uint64_t dB = desc_sw128(sB + j * L.cb, 16, 1024);
+      const uint64_t dB = desc_n<N>(sB + j * L.cb, 16);
 #pragma unroll
-      for (int kk = 0; kk < N / 16; ++kk) {
-        const uint32_t off = ((kk / 4) * TILE_BYTES + (kk % 4) * 32) >> 4;
-        wgmma_ss_m64n64k16(sacc[j], dC + off, dB + off, kk > 0);
-      }
+      for (int kk = 0; kk < N / 16; ++kk)
+        wgmma_ss_m64n64k16(sacc[j], dC + koff_n<N>(kk), dB + koff_n<N>(kk), kk > 0);
     }
   wgmma_commit();
   wgmma_wait<0>();
@@ -409,13 +464,11 @@ ssd_fwd_chunk_scan(const __grid_constant__ CUtensorMap tm_x,
 
     // Inter-chunk term: acc = C_i . state^T (K n), rows scaled by exp(cum_i).
     float acc[32];
-    const uint64_t dH = desc_sw128(stage(s) + L.st, 16, 1024);
+    const uint64_t dH = desc_n<N>(stage(s) + L.st, 16);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < N / 16; ++kk) {
-      const uint32_t off = ((kk / 4) * TILE_BYTES + (kk % 4) * 32) >> 4;
-      wgmma_ss_m64n64k16(acc, dC + off, dH + off, kk > 0);
-    }
+    for (int kk = 0; kk < N / 16; ++kk)
+      wgmma_ss_m64n64k16(acc, dC + koff_n<N>(kk), dH + koff_n<N>(kk), kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_operands(acc);
@@ -473,21 +526,32 @@ ssd_fwd_chunk_scan(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
+// The box width along n (NBox<N>::BOX on the card), and the swizzle of a
+// box of that many bf16 columns: one 32-byte or 128-byte row.
+inline int n_box(int N) { return N == 16 ? 16 : 64; }
+inline CUtensorMapSwizzle swizzle_of(int box) {
+  return box == 16 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B;
+}
+
 // A 4-D map over (inner, second, rows, batch) of a bf16 tensor, element
-// strides (batch, row, second), boxes of 64 x 1 x `rows_box` x 1.
+// strides (batch, row, second), boxes of `inner_box` x 1 x `rows_box` x 1:
+// 64 columns with 128-byte swizzle, or 16 with 32-byte swizzle.
 bool map_rows(CUtensorMap* map, const void* ptr, int inner, int second, int rows, int batch,
-              long long s_batch, long long s_row, long long s_second, int rows_box) {
+              long long s_batch, long long s_row, long long s_second, int rows_box,
+              int inner_box = 64) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(second),
                               static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_second) * 2,
                                  static_cast<cuuint64_t>(s_row) * 2,
                                  static_cast<cuuint64_t>(s_batch) * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows_box), 1};
-  return make_map_bf16(map, ptr, dims, strides, box);
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(inner_box), 1,
+                             static_cast<cuuint32_t>(rows_box), 1};
+  return make_map_bf16(map, ptr, dims, strides, box, swizzle_of(inner_box));
 }
 
 bool shape_ok(int batch, int S, int NH, int G, int N, int CH, int HPB) {
-  return batch > 0 && S > 0 && NH > 0 && G > 0 && NH % G == 0 && (N == 64 || N == 128) &&
+  return batch > 0 && S > 0 && NH > 0 && G > 0 && NH % G == 0 &&
+         (N == 16 || N == 64 || N == 128) &&
          (CH == 64 || CH == 128 || CH == 256) && S % CH == 0 && HPB > 0 &&
          (NH / G) % HPB == 0;
 }
@@ -515,7 +579,7 @@ extern "C" int ssd_chunk_state_sm90(const void* x, const void* dt, const void* A
   if (!shape_ok(batch, S, NH, G, N, CH, HPB)) return cudaErrorInvalidValue;
   CUtensorMap tm_x, tm_b;
   if (!map_rows(&tm_x, x, P, NH, S, batch, sxb, sxs, sxh, CH) ||
-      !map_rows(&tm_b, B, N, G, S, batch, sbb, sbs, sbg, CH))
+      !map_rows(&tm_b, B, N, G, S, batch, sbb, sbs, sbg, CH, n_box(N)))
     return cudaErrorInvalidValue;
   const int smem = state_smem(N, CH);
   const dim3 grid(NH / HPB, S / CH, batch);
@@ -530,8 +594,10 @@ extern "C" int ssd_chunk_state_sm90(const void* x, const void* dt, const void* A
       sdh)
   if (N == 128) {
     SSD_STATE_LAUNCH(128);
-  } else {
+  } else if (N == 64) {
     SSD_STATE_LAUNCH(64);
+  } else {
+    SSD_STATE_LAUNCH(16);
   }
 #undef SSD_STATE_LAUNCH
   return cudaGetLastError();
@@ -566,18 +632,18 @@ extern "C" int ssd_chunk_scan_sm90(const void* x, const void* B, const void* C, 
   if (!shape_ok(batch, S, NH, G, N, CH, HPB)) return cudaErrorInvalidValue;
   const int NC = S / CH;
   CUtensorMap tm_x, tm_b, tm_c, tm_h;
-  // h_in as (N, P, NH, batch * NC): boxes of 64 columns x all 64 rows of p.
+  // h_in as (N, P, NH, batch * NC): boxes of n_box(N) columns x all 64 rows of p.
   const cuuint64_t hdims[4] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(P),
                                static_cast<cuuint64_t>(NH),
                                static_cast<cuuint64_t>(batch) * NC};
   const cuuint64_t hstrides[3] = {static_cast<cuuint64_t>(N) * 2,
                                   static_cast<cuuint64_t>(P) * N * 2,
                                   static_cast<cuuint64_t>(NH) * P * N * 2};
-  const cuuint32_t hbox[4] = {64, 64, 1, 1};
+  const cuuint32_t hbox[4] = {static_cast<cuuint32_t>(n_box(N)), 64, 1, 1};
   if (!map_rows(&tm_x, x, P, NH, S, batch, sxb, sxs, sxh, TILE) ||
-      !map_rows(&tm_b, B, N, G, S, batch, sbb, sbs, sbg, TILE) ||
-      !map_rows(&tm_c, C, N, G, S, batch, scb, scs, scg, TILE) ||
-      !make_map_bf16(&tm_h, h_in, hdims, hstrides, hbox))
+      !map_rows(&tm_b, B, N, G, S, batch, sbb, sbs, sbg, TILE, n_box(N)) ||
+      !map_rows(&tm_c, C, N, G, S, batch, scb, scs, scg, TILE, n_box(N)) ||
+      !make_map_bf16(&tm_h, h_in, hdims, hstrides, hbox, swizzle_of(n_box(N))))
     return cudaErrorInvalidValue;
   const long long blocks = static_cast<long long>(NC) * batch * (NH / HPB);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -593,8 +659,10 @@ extern "C" int ssd_chunk_scan_sm90(const void* x, const void* B, const void* C, 
       static_cast<__nv_bfloat16*>(y), S, NH, G, CH, HPB, syb, sys, syh)
   if (N == 128) {
     SSD_SCAN_LAUNCH(128);
-  } else {
+  } else if (N == 64) {
     SSD_SCAN_LAUNCH(64);
+  } else {
+    SSD_SCAN_LAUNCH(16);
   }
 #undef SSD_SCAN_LAUNCH
   return cudaGetLastError();

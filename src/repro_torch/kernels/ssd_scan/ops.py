@@ -9,12 +9,13 @@ a tensor on a CUDA device goes to a hand-written kernel, or the call raises.
 Which kernel is fixed by shape, dtype and alignment before the launch
 (:func:`variant`), never by a failure:
 
-* ``"sm90"``: bf16 at p 64, n 64 or 128, chunks of 64, 128 or 256, x, B and
-  C 16-byte aligned with 16-byte strides (TMA reads them in place), on the
-  tensor cores in three passes, ``csrc/ssd_scan_sm90.cu``: chunk states
+* ``"sm90"``: bf16 at p 64, n 16, 64 or 128, chunks of 64, 128 or 256, x,
+  B and C 16-byte aligned with 16-byte strides (TMA reads them in place), on
+  the tensor cores in three passes, ``csrc/ssd_scan_sm90.cu``: chunk states
   (:func:`chunk_state`), the in-order state recurrence (:func:`state_pass`),
   the outputs with C.B^T shared by a block's heads (:func:`chunk_scan`); the
-  serving path;
+  serving paths (mamba2-130m at n 128, jamba-v0.1-52b at n 16, whose B, C
+  and states the kernel lays out in 32-byte rows);
 * ``"simt"``: everything else the CUDA cores take (float32, p 16 / 32 / 64,
   n <= 128, chunks <= 256), ``csrc/ssd_scan.cu``, one launch.
 
@@ -43,11 +44,13 @@ SUPPORTED_P = (16, 32, 64)     # head dims the simt kernel is instantiated for
 MAX_N = 128                    # d_state
 MAX_CHUNK = 256
 SM90_P = (64,)
-SM90_N = (64, 128)
+SM90_N = (16, 64, 128)
 SM90_CHUNKS = (64, 128, 256)
 # Heads per block of the sm90 passes: a divisor of the heads per group, at
-# most this many. Pass 3 forms C.B^T once per block for all of them.
-STATE_HEADS, SCAN_HEADS = 4, 8
+# most this many. Pass 3 forms C.B^T once per block for all of them. Fewer,
+# longer blocks run faster at jamba's 128 heads to a group than 4 and 8, and
+# level at mamba2's 24 (chip_smoke.py times both shapes at both settings).
+STATE_HEADS, SCAN_HEADS = 16, 32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _C = ctypes.c_int
 _L = ctypes.c_longlong
@@ -113,7 +116,10 @@ def tma_aligned(*tensors: torch.Tensor) -> bool:
 
 def variant(dtype: torch.dtype, p: int, n: int, chunk: int, aligned: bool = True) -> str:
     """The kernel that takes (dtype, head dim, d_state, chunk) on the card;
-    ``aligned`` is :func:`tma_aligned` of x, B and C."""
+    ``aligned`` is :func:`tma_aligned` of x, B and C. ``sm90`` for bf16 at
+    p in ``SM90_P``, n in ``SM90_N`` (16: jamba's SSM layers; 64, 128:
+    mamba2's) and chunk in ``SM90_CHUNKS`` when aligned; ``simt`` for the
+    rest, float32 at any of those shapes included."""
     if (dtype == torch.bfloat16 and p in SM90_P and n in SM90_N and chunk in SM90_CHUNKS
             and aligned):
         return "sm90"

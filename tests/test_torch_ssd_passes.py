@@ -23,14 +23,17 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.ssd_scan import ops, ref  # noqa: E402
 
-# (b, s, nh, p, g, n, chunk, dtype): SSD_CASES of tests/test_kernels.py, and
-# one more case with g > 1 (4 groups of 2 heads).
+# (b, s, nh, p, g, n, chunk, dtype): SSD_CASES of tests/test_kernels.py, one
+# more case with g > 1 (4 groups of 2 heads), and jamba-v0.1-52b's head
+# layout (p 64, one group, n 16, chunks of 256) cut to 8 heads and 2 chunks.
 CASES = [
     (2, 128, 8, 32, 1, 16, 64, "float32"),
     (1, 256, 4, 16, 2, 8, 32, "float32"),
     (1, 64, 2, 64, 1, 32, 64, "float32"),
     (2, 128, 4, 32, 1, 16, 32, "bfloat16"),
     (2, 128, 8, 16, 4, 16, 64, "float32"),
+    (1, 512, 8, 64, 1, 16, 256, "float32"),
+    (1, 512, 8, 64, 1, 16, 256, "bfloat16"),
 ]
 CASE_IDS = [f"s{c[1]}nh{c[2]}p{c[3]}g{c[4]}n{c[5]}c{c[6]}{c[7]}" for c in CASES]
 Y_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -202,6 +205,12 @@ VARIANT_TABLE = [
     ("bfloat16", 16, 128, 256, True, "simt"),
     ("bfloat16", 32, 128, 256, True, "simt"),
     ("bfloat16", 64, 8, 256, True, "simt"),
+    ("bfloat16", 64, 16, 256, True, "sm90"),       # jamba-v0.1-52b's SSM layers
+    ("bfloat16", 64, 16, 128, True, "sm90"),
+    ("bfloat16", 64, 16, 64, True, "sm90"),
+    ("bfloat16", 64, 32, 256, True, "simt"),
+    ("float32", 64, 16, 256, True, "simt"),
+    ("bfloat16", 64, 16, 256, False, "simt"),
     ("bfloat16", 64, 128, 96, True, "simt"),
     ("bfloat16", 64, 128, 17, True, "simt"),
     ("bfloat16", 64, 128, 256, False, "simt"),
@@ -234,6 +243,23 @@ def test_tma_alignment_of_the_models_views_and_of_a_misaligned_stride():
     assert not ops.tma_aligned(*views(d_in + 2 * g * n, start=1))
 
 
+def test_tma_alignment_of_jambas_conv_output_views():
+    """jamba-v0.1-52b's x, B, C as views into its conv output: d_inner 8192
+    + 2 g n = 8224 bf16 a row (16,448 bytes), B at byte 16,384 and C at
+    16,416, each 16 columns (32 bytes) wide. TMA reads all three in place, so
+    the scan runs on sm90."""
+    b, s, nh, p, g, n = 1, 8, 128, 64, 1, 16
+    d_in = nh * p
+    xbc = torch.zeros(b, s, d_in + 2 * g * n, dtype=torch.bfloat16)
+    x = xbc[..., :d_in].reshape(b, s, nh, p)
+    B = xbc[..., d_in:d_in + g * n].reshape(b, s, g, n)
+    C = xbc[..., d_in + g * n:].reshape(b, s, g, n)
+    assert xbc.stride(1) * 2 == 16448
+    assert (B.data_ptr() - xbc.data_ptr(), C.data_ptr() - xbc.data_ptr()) == (16384, 16416)
+    assert ops.tma_aligned(x, B, C)
+    assert ops.variant(torch.bfloat16, p, n, 256, ops.tma_aligned(x, B, C)) == "sm90"
+
+
 def test_variant_counts_cover_both_kernels():
     assert set(ops.LAUNCHES_BY_VARIANT) == {"sm90", "simt"}
 
@@ -251,7 +277,9 @@ def cuda_device():
 
 
 # One chunk of 64 at n 64, then n 128; chunks of 128 and 256 over several
-# chunks; g 2 with nh 8; a head tile of 8 heads out of 24.
+# chunks; g 2 with nh 8; a head tile of 8 heads out of 24. Then n 16 (32-byte
+# rows): one chunk of 64, chunks of 128 with g 2, and jamba's layout (128
+# heads in one group) over 4 chunks of 256.
 SM90_CASES = [
     (1, 64, 4, 64, 1, 64, 64, "bfloat16"),
     (1, 64, 4, 64, 1, 128, 64, "bfloat16"),
@@ -259,6 +287,9 @@ SM90_CASES = [
     (2, 1024, 4, 64, 1, 128, 256, "bfloat16"),
     (2, 512, 8, 64, 2, 64, 128, "bfloat16"),
     (1, 512, 24, 64, 1, 128, 256, "bfloat16"),
+    (1, 64, 4, 64, 1, 16, 64, "bfloat16"),
+    (2, 512, 8, 64, 2, 16, 128, "bfloat16"),
+    (2, 1024, 128, 64, 1, 16, 256, "bfloat16"),
 ]
 
 
@@ -306,10 +337,12 @@ def test_sm90_passes_each_vs_its_plain_pass(case, cuda_device):
     _assert_y(y, ref.chunk_scan_reference(x, dt, B, C, want_cum, h_bf16.float(), chunk), name)
 
 
-def test_sm90_reads_conv_output_views_with_an_init_state(cuda_device):
+@pytest.mark.parametrize("nh,n", [(8, 128), (128, 16)], ids=str)
+def test_sm90_reads_conv_output_views_with_an_init_state(nh, n, cuda_device):
     """x, B, C as views into one (b, s, conv_dim) tensor, as the model passes
-    them (TMA reads them in place), and a continuation from an init state."""
-    b, s, nh, p, g, n, chunk = 2, 1024, 8, 64, 1, 128, 256
+    them (TMA reads them in place), and a continuation from an init state:
+    at mamba2's n 128 and at jamba's n 16 with 128 heads in one group."""
+    b, s, p, g, chunk = 2, 1024, 64, 1, 256
     d_in = nh * p
     rng = np.random.default_rng(3)
     xbc = torch.from_numpy(rng.standard_normal((b, s, d_in + 2 * g * n)).astype(np.float32) * 0.4)
@@ -339,7 +372,9 @@ def test_sm90_main_shape(cuda_device):
 
 @pytest.mark.parametrize("case", [SM90_CASES[1], (1, 64, 4, 64, 1, 128, 64, "float32"),
                                   (1, 96, 4, 64, 1, 128, 96, "bfloat16"),
-                                  (1, 64, 4, 32, 1, 128, 64, "bfloat16")], ids=str)
+                                  (1, 64, 4, 32, 1, 128, 64, "bfloat16"),
+                                  SM90_CASES[6], (1, 64, 4, 64, 1, 16, 64, "float32"),
+                                  (1, 64, 4, 64, 1, 32, 64, "bfloat16")], ids=str)
 def test_launches_by_variant_follow_the_table(case, cuda_device):
     b, s, nh, p, g, n, chunk, name = case
     inputs = _card_inputs(case, 9, cuda_device)
