@@ -34,6 +34,16 @@ random weights:
   (serving never reads it), which launches no hand kernel (MLA attends at
   head dims 192 / 128 through ``chunked_attention``, as the reference), and
   its absorbed decode against its reconstructing forward;
+* serving the encoder-decoder and VLM families whole, bf16, 8 requests
+  each: ``whisper-tiny`` over its 1,500 stub encoder frames with a 384-token
+  prompt and 64 generated tokens (every encoder, decoder and cross
+  attention of the prefill on ``sm90``: 12 launches, two of the three
+  shapes ragged and the cross attention at S != T), and ``qwen2-vl-2b``
+  over 2,048 tokens whose first 1,024 are stub vision embeddings, 32
+  generated (28 ``sm90`` launches at GQA rep 6), with one more prefill at
+  Qwen2-VL's own M-RoPE positions for a 32 x 32 patch grid, kernel against
+  plain and against the default positions; decode against forward in
+  float32 for whisper whole and qwen2-vl at 2 layers, on ``simt``;
 * one training rank, 4 layers (an Adam state of all 32 does not fit one
   card): ``make_train_step`` for 8 timed steps of 4 x 1024 tokens, then a
   TCE checkpoint of the trained params through ``DiskStore`` with the
@@ -45,7 +55,7 @@ random weights:
   loss and from the store after an adjacent double loss, each leg held to
   the plain codec on the card; then the port's rank worker as a subprocess
   on the card, killed in the middle of a save and restored, at its reduced
-  default;
+  default, with the ``raw`` and the ``int8`` codec at once;
 * the TRANSOM recovery loop (``repro_torch.substrate.driver.run_protected``
   over ``ProcessSubstrate(device="cuda")``, the TEE on): two rank processes
   on the card train 24 steps through two SIGKILLs, the streaming TEE scores
@@ -144,14 +154,26 @@ SSD_REPLACES = "src/repro/kernels/ssd_scan/ssd_scan.py:24"
 # summation order; bf16: x, B, C are bf16, y is rounded to bf16 once).
 SSD_Y_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 SSD_STATE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-# The MoE, hybrid and MLA serving paths: one wave of 8 x 1024-token prompts
-# and 32 generated tokens each, at full width. (arch, layers kept, MTP depth);
-# None keeps the published depth. jamba: one whole period of its 1:7
-# attention interleave (32 layers, ~104 GB in bf16, do not fit one card);
-# deepseek-v3: the 3 dense layers and one MLA + MoE layer, no MTP head.
-FAMILY_SERVES = (("olmoe-1b-7b", None, None), ("jamba-v0.1-52b", 8, None),
-                 ("deepseek-v3-671b", 4, 0))
+# The MoE, hybrid, MLA, encoder-decoder and VLM serving paths: one wave of 8
+# requests each, at full width. (arch, layers kept, MTP depth, prompt
+# length, generated tokens); None keeps the published depth. jamba: one
+# whole period of its 1:7 attention interleave (32 layers, ~104 GB in bf16,
+# do not fit one card); deepseek-v3: the 3 dense layers and one MLA + MoE
+# layer, no MTP head. whisper-tiny and qwen2-vl-2b are served whole:
+# whisper over its 1,500 encoder frames, a 384-token decoder prompt and 64
+# generated tokens (448 positions, Whisper's text context, arXiv:2212.04356);
+# qwen2-vl over 2,048 tokens, the first 1,024 of them the stub vision
+# embeddings (n_vision_tokens).
 FAMILY_REQUESTS, FAMILY_PROMPT_LEN, FAMILY_GEN = 8, 1024, 32
+WHISPER_PROMPT_LEN, WHISPER_GEN, QWEN_VL_PROMPT_LEN = 384, 64, 2048
+FAMILY_SERVES = (("olmoe-1b-7b", None, None, FAMILY_PROMPT_LEN, FAMILY_GEN),
+                 ("jamba-v0.1-52b", 8, None, FAMILY_PROMPT_LEN, FAMILY_GEN),
+                 ("deepseek-v3-671b", 4, 0, FAMILY_PROMPT_LEN, FAMILY_GEN),
+                 ("whisper-tiny", None, None, WHISPER_PROMPT_LEN, WHISPER_GEN),
+                 ("qwen2-vl-2b", None, None, QWEN_VL_PROMPT_LEN, FAMILY_GEN))
+# qwen2-vl's 1,024 vision tokens as a 32 x 32 patch grid, for the prefill at
+# Qwen2-VL's M-RoPE positions (arXiv:2409.12191)
+QWEN_VL_GRID_W = 32
 # The absorbed MLA decode against the reconstructing forward, bf16: 2 x 256
 # tokens (prefill 255, decode token 255). The limit is the prefill check's.
 MLA_CHECK_BATCH, MLA_CHECK_SEQ = 2, 256
@@ -197,7 +219,12 @@ SSD_OLD_HEADS = (4, 8)
 # an empty second consumer in the last tile, GQA rep 4 at D 64, D 128
 # without the mask), olmoe-1b-7b's attention layers in its serve wave (16
 # heads, no GQA grouping, D 128: sm90), the f32 decode check's two shapes
-# (simt), and the main-path shape last.
+# (simt), whisper-tiny's three attentions in its serve wave (the encoder,
+# not causal at S = T = 1,500: ragged q and kv tiles; the decoder's causal
+# self-attention; cross attention, 384 decoder rows against 1,500 encoder
+# rows; 6 heads at D 64: sm90), qwen2-vl-2b's (GQA rep 6 at D 128: sm90),
+# and S != T in float32 (whisper's f32 decode check: simt); the main-path
+# shape last.
 FA_CASES = [
     (2, 128, 128, 4, 2, 64, True, torch.float32),
     (1, 256, 256, 8, 8, 64, True, torch.float32),
@@ -214,6 +241,11 @@ FA_CASES = [
     (FAMILY_REQUESTS, FAMILY_PROMPT_LEN, FAMILY_PROMPT_LEN, 16, 16, 128, True, torch.bfloat16),
     (2, 17, 17, 32, 8, 128, True, torch.float32),
     (2, 16, 16, 32, 8, 128, True, torch.float32),
+    (FAMILY_REQUESTS, 1500, 1500, 6, 6, 64, False, torch.bfloat16),
+    (FAMILY_REQUESTS, WHISPER_PROMPT_LEN, WHISPER_PROMPT_LEN, 6, 6, 64, True, torch.bfloat16),
+    (FAMILY_REQUESTS, WHISPER_PROMPT_LEN, 1500, 6, 6, 64, False, torch.bfloat16),
+    (FAMILY_REQUESTS, QWEN_VL_PROMPT_LEN, QWEN_VL_PROMPT_LEN, 12, 2, 128, True, torch.bfloat16),
+    (2, 17, 1500, 6, 6, 64, False, torch.float32),
 ]
 MAIN_FA = (REQUESTS, PROMPT_LEN, PROMPT_LEN, 32, 8, 128, True, torch.bfloat16)
 # The simt kernel is timed at the main path's shape in float32 (serving in
@@ -265,7 +297,12 @@ QB_SRC = "src/repro_torch/kernels/quant_blockwise/csrc/quant_blockwise.cu"
 QB_REPLACES = "src/repro/kernels/quant_blockwise/quant_blockwise.py"
 
 
+T0 = time.perf_counter()   # the script's start: each phase line's t_s counts from it
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -487,10 +524,14 @@ def phase_kernel(fa_ops, fa_ref):
 
 def layer_counts(cfg) -> dict:
     """Prefill launches one wave should make, per kernel: flash attention
-    once per attention layer (MLA layers attend in plain torch), the SSD scan
-    once per SSM layer."""
+    once per attention layer (MLA layers attend in plain torch), and for the
+    encoder-decoder once more per decoder layer (cross attention) and once
+    per encoder layer; the SSD scan once per SSM layer."""
     kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
-    return {"fa": 0 if cfg.mla is not None else kinds.count("attn"), "ssd": kinds.count("ssm")}
+    fa = 0 if cfg.mla is not None else kinds.count("attn")
+    if cfg.family == "encdec":
+        fa += cfg.n_layers + cfg.encdec.n_enc_layers
+    return {"fa": fa, "ssd": kinds.count("ssm")}
 
 
 def layer_pattern(cfg) -> list:
@@ -572,15 +613,17 @@ def phase_serve(kernels, serve_cli, engine, cfg, requests, prompt_len, gen, vari
     ``SEED``. Every kernel's launches are counted in that run alone, by
     variant, against the layers of its kind (``variants`` names the one each
     kernel must take). Then a warm wave, a profiled prefill, and the prefill
-    logits against an all-plain prefill. ``keep`` returns the weights for a
-    later check."""
+    logits against an all-plain prefill. Every prefill takes the wave's batch
+    extras (whisper's encoder frames, qwen2-vl's vision embeddings). ``keep``
+    returns the weights and the batch for a later check."""
     torch.cuda.reset_peak_memory_stats()
     reset_counts(kernels)
     res = serve_cli.serve(cfg, requests, prompt_len, gen, SEED, torch.device("cuda"))
     launches = {k: ops.LAUNCHES for k, ops in kernels.items()}
     by_variant = {k: dict(ops.LAUNCHES_BY_VARIANT) for k, ops in kernels.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    params, prompts = res["params"], res["prompts"]
+    params, prompts, extras = res["params"], res["prompts"], res["extras"]
+    batch = {"tokens": prompts, **extras}
     toks = res["tokens"]
     check(tuple(toks.shape) == (requests, gen), f"tokens shape {tuple(toks.shape)}")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "token out of [0, vocab)")
@@ -593,14 +636,14 @@ def phase_serve(kernels, serve_cli, engine, cfg, requests, prompt_len, gen, vari
               f"{cfg.name}: {k} launched {launches[k]} times {by_variant[k]}, want {want}")
 
     # Warm wave: steady-state times (cuBLAS and allocator already warm).
-    warm = serve_cli.serve_wave(params, cfg, prompts, gen)
+    warm = serve_cli.serve_wave(params, cfg, prompts, gen, extras)
 
     # One more prefill under the profiler: device time by kernel kind, and
     # its sum over the prefill's wall time (the busy share).
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof, torch.inference_mode():
         t0 = time.perf_counter()
-        engine.prefill_fn(params, cfg, {"tokens": prompts})
+        engine.prefill_fn(params, cfg, batch)
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3
     by_kind: dict = {}
@@ -617,6 +660,7 @@ def phase_serve(kernels, serve_cli, engine, cfg, requests, prompt_len, gen, vari
     out = {"phase": "serve", "arch": cfg.name, "cut": cut, "n_params": cfg.n_params(),
            "n_layers": cfg.n_layers, "layer_pattern": layer_pattern(cfg),
            "d_model": cfg.d_model, "requests": requests, "prompt_len": prompt_len, "gen": gen,
+           "extras": {k: list(v.shape) for k, v in extras.items()},
            "dtype": cfg.compute_dtype, "launches": launches, "launches_by_variant": by_variant,
            "first_prefill_ms": res["prefill_s"] * 1e3, "prefill_ms": warm["prefill_s"] * 1e3,
            "prefill_tok_s": requests * prompt_len / warm["prefill_s"],
@@ -632,18 +676,16 @@ def phase_serve(kernels, serve_cli, engine, cfg, requests, prompt_len, gen, vari
         from repro_torch.models import moe as moe_mod
 
         with torch.inference_mode():
-            plain_logits, _ = engine.prefill_fn(params, cfg, {"tokens": prompts},
-                                                attn_impl="plain")
+            plain_logits, _ = engine.prefill_fn(params, cfg, batch, attn_impl="plain")
             got = res["prefill_logits"].float()
             if cfg.moe is not None:
                 out["logits_max_abs_diff_own_routing"] = float(
                     (got - plain_logits.float()).abs().max())
                 with Routing(moe_mod) as routing:
                     routing.record()
-                    got, _ = engine.prefill_fn(params, cfg, {"tokens": prompts})
+                    got, _ = engine.prefill_fn(params, cfg, batch)
                     routing.replay()
-                    plain_logits, _ = engine.prefill_fn(params, cfg, {"tokens": prompts},
-                                                        attn_impl="plain")
+                    plain_logits, _ = engine.prefill_fn(params, cfg, batch, attn_impl="plain")
                 got = got.float()
                 out.update(routing_flips=routing.flips, routing_flip_gap=routing.flip_gap,
                            routed_tokens=requests * prompt_len * sum(
@@ -661,7 +703,7 @@ def phase_serve(kernels, serve_cli, engine, cfg, requests, prompt_len, gen, vari
         check(out["logits_max_abs_diff"] <= LOGITS_REL_TOL * out["logits_scale"],
               f"prefill logits kernel vs plain: max |diff| {out['logits_max_abs_diff']} > "
               f"{LOGITS_REL_TOL} x {out['logits_scale']}")
-    return launches, out, ((params, prompts) if keep else None)
+    return launches, out, ((params, batch) if keep else None)
 
 
 def check_flips(flips: int, gap: float, routed: int, what: str) -> None:
@@ -686,25 +728,40 @@ def no_drop(cfg):
         cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
 
 
-def phase_decode_check(engine, model_mod, ops, arch, variant=None, kind="attn"):
-    """Decode position s-1 after prefilling s-1 tokens == forward over s
-    tokens (tests/test_models.py), full width, float32, 2 layers (MoE at the
-    capacity of the whole group, ``no_drop``); forward and prefill go
-    through the kernel (where it has variants, all on ``variant``), once per
-    layer of ``kind``. Returns the kernel's launches in this check."""
-    from repro_torch.configs import get_config
+# The VLM's decode check overwrites the first 8 of its 17 token embeddings
+# with vision embeddings.
+DECODE_VISION = 8
 
-    cfg = no_drop(dataclasses.replace(get_config(arch), n_layers=2, compute_dtype="float32"))
+
+def phase_decode_check(engine, model_mod, ops, arch, variant=None, kind="fa", layers=2):
+    """Decode position s-1 after prefilling s-1 tokens == forward over s
+    tokens (tests/test_models.py), full width, float32, ``layers`` layers
+    (None keeps the published depth; MoE at the capacity of the whole group,
+    ``no_drop``); forward and prefill go through the kernel (where it has
+    variants, all on ``variant``), ``layer_counts(cfg)[kind]`` times each.
+    The encoder-decoder takes its encoder frames, the VLM ``DECODE_VISION``
+    vision embeddings (all before the decoded token), both from
+    ``launch/serve.make_extras``. Returns the kernel's launches in this
+    check."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_extras
+
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    cfg = no_drop(cfg)
     params = model_mod.init_params(cfg, seed=2, device="cuda")
     b, s = 2, 17
     g = torch.Generator(device="cuda").manual_seed(5)
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device="cuda")
+    extras = make_extras(cfg, b, DECODE_VISION, 5, "cuda")
     before = ops.LAUNCHES
     if variant:
         ops.LAUNCHES_BY_VARIANT.update({k: 0 for k in ops.LAUNCHES_BY_VARIANT})
     with torch.inference_mode():
-        full, _, _, _ = model_mod.forward(params, cfg, {"tokens": tokens}, mode="train")
-        _, cache = engine.prefill_fn(params, cfg, {"tokens": tokens[:, :s - 1]})
+        full, _, _, _ = model_mod.forward(params, cfg, {"tokens": tokens, **extras},
+                                          mode="train")
+        _, cache = engine.prefill_fn(params, cfg, {"tokens": tokens[:, :s - 1], **extras})
         cache = engine.pad_cache(cfg, cache, b, s + 4)
         pos = torch.full((b,), s - 1, dtype=torch.long, device="cuda")
         dec, _ = engine.decode_fn(params, cfg, tokens[:, s - 1], cache, pos)
@@ -713,13 +770,16 @@ def phase_decode_check(engine, model_mod, ops, arch, variant=None, kind="attn"):
     want = full[:, s - 1]
     err = float((dec - want).abs().max())
     ok = bool(((dec - want).abs() <= DECODE_TOL + DECODE_TOL * want.abs()).all())
-    n_kind = sum(cfg.layer_kind(i) == kind for i in range(cfg.n_layers))
-    emit({"phase": "decode_matches_forward", "arch": arch, "n_layers": 2,
+    per_pass = layer_counts(cfg)[kind]
+    emit({"phase": "decode_matches_forward", "arch": arch, "n_layers": cfg.n_layers,
           "layer_pattern": layer_pattern(cfg), "n_params": cfg.n_params(),
-          "d_model": cfg.d_model, "dtype": "float32", "kernel_launches": launches,
+          "d_model": cfg.d_model, "dtype": "float32", "tokens": [b, s],
+          "extras": {k: list(v.shape) for k, v in extras.items()},
+          "kernel_launches": launches, "kernel_launches_per_pass": per_pass,
           "kernel_launches_by_variant": by_variant,
           "max_abs_err": err, "tol": DECODE_TOL, "ok": ok})
-    check(launches == 2 * n_kind, f"{launches} kernel launches in forward + prefill")
+    check(launches == 2 * per_pass,
+          f"{launches} kernel launches in forward + prefill, want 2 x {per_pass}")
     if variant:
         check(by_variant[variant] == launches, f"launches by variant {by_variant}, want {variant}")
     check(ok, f"decode vs forward: max abs err {err}")
@@ -772,14 +832,67 @@ def phase_mla_decode_check(engine, model_mod, kernels, params, cfg):
     return out
 
 
+def grid_positions(b: int, s: int, n_vis: int, width: int, device) -> torch.Tensor:
+    """Qwen2-VL's M-RoPE positions (arXiv:2409.12191), (3, b, s): ``n_vis``
+    patches on a grid ``width`` wide, patch i at (0, i // width, i % width),
+    then text token j at max + 1 + j in all three streams."""
+    i = torch.arange(n_vis)
+    vis = torch.stack([torch.zeros_like(i), i // width, i % width])
+    text = (torch.arange(s - n_vis) + int(vis.max()) + 1).expand(3, s - n_vis)
+    return torch.cat([vis, text], dim=1)[:, None].expand(3, b, s).to(device)
+
+
+def phase_mrope_grid_check(engine, kernels, params, batch, cfg):
+    """qwen2-vl's prefill at Qwen2-VL's own M-RoPE positions for its 1,024
+    vision tokens as a 32 x 32 grid (``grid_positions``, passed as the batch's
+    ``positions``), where the t, h and w streams differ: the kernel prefill
+    (one sm90 launch per layer) against the all-plain one within
+    ``LOGITS_REL_TOL`` of max |logit|, and both farther than that from the
+    default-position logits (t = h = w), which shows that the bands moved."""
+    b, s = batch["tokens"].shape
+    n_vis = batch["vision_embeds"].shape[1]
+    pos = grid_positions(b, s, n_vis, QWEN_VL_GRID_W, "cuda")
+    reset_counts(kernels)
+    with torch.inference_mode():
+        got, _ = engine.prefill_fn(params, cfg, {**batch, "positions": pos})
+        launches = {k: dict(ops.LAUNCHES_BY_VARIANT) for k, ops in kernels.items()}
+        plain, _ = engine.prefill_fn(params, cfg, {**batch, "positions": pos},
+                                     attn_impl="plain")
+        default, _ = engine.prefill_fn(params, cfg, batch)
+    got, plain, default = got.float(), plain.float(), default.float()
+    scale = float(plain.abs().max())
+    out = {"phase": "mrope_grid_prefill", "arch": cfg.name, "tokens": [b, s],
+           "vision_grid": [n_vis // QWEN_VL_GRID_W, QWEN_VL_GRID_W],
+           "mrope_sections": list(cfg.vlm.mrope_sections), "launches_by_variant": launches,
+           "logits_max_abs_diff": float((got - plain).abs().max()), "logits_scale": scale,
+           "rel_tol": LOGITS_REL_TOL,
+           "vs_default_positions_max_abs_diff": float((got - default).abs().max()),
+           "argmax_agree": float((got.argmax(-1) == plain.argmax(-1)).float().mean())}
+    emit(out)
+    want = {"sm90": cfg.n_layers, "simt": 0}
+    check(launches["fa"] == want, f"grid prefill launched {launches['fa']}, want {want}")
+    check(out["logits_max_abs_diff"] <= LOGITS_REL_TOL * scale,
+          f"grid-position prefill kernel vs plain: {out['logits_max_abs_diff']} > "
+          f"{LOGITS_REL_TOL} x {scale}")
+    check(out["vs_default_positions_max_abs_diff"] > LOGITS_REL_TOL * scale,
+          "grid-position logits within the kernel limit of the default-position ones: "
+          "the M-RoPE bands did not move")
+    return out
+
+
 def phase_families(kernels, serve_cli, engine, model_mod):
-    """The MoE, hybrid and MLA families at full width (``FAMILY_SERVES``):
-    each serve wave, then jamba's float32 decode check and deepseek-v3's
-    absorbed decode check. Each frees its weights before the next."""
+    """The MoE, hybrid, MLA, encoder-decoder and VLM families at full width
+    (``FAMILY_SERVES``): each serve wave (qwen2-vl's with its prefill at
+    grid M-RoPE positions, deepseek-v3's with its absorbed decode check),
+    then the float32 decode checks of jamba (2 layers), whisper-tiny (whole)
+    and qwen2-vl (2 layers). Each frees its weights before the next."""
     from repro_torch.configs import get_config
 
     def freed(what):
-        # each phase must leave the card as it found it (weights freed)
+        # each phase must leave the card as it found it (weights freed); and
+        # its wall time since the one before, for the script's time budget
+        nonlocal t_last
+        seconds[what] = time.perf_counter() - t_last
         torch.cuda.empty_cache()
         held = torch.cuda.memory_allocated()
         gc.collect()
@@ -787,9 +900,11 @@ def phase_families(kernels, serve_cli, engine, model_mod):
         memory[what] = {"allocated_gb": held / 1e9, "after_gc_gb": after_gc / 1e9}
         check(after_gc <= base + 2 ** 30,
               f"{what} left {(after_gc - base) / 1e9:.2f} GB allocated on the card")
+        t_last = time.perf_counter()
 
-    base, memory, runs = torch.cuda.memory_allocated(), {}, {}
-    for arch, layers, mtp in FAMILY_SERVES:
+    base, memory, runs, seconds = torch.cuda.memory_allocated(), {}, {}, {}
+    t_last = time.perf_counter()
+    for arch, layers, mtp, prompt_len, gen in FAMILY_SERVES:
         cfg, cut = get_config(arch), []
         if layers is not None and layers != cfg.n_layers:
             cut.append(f"n_layers {cfg.n_layers} -> {layers}")
@@ -799,20 +914,27 @@ def phase_families(kernels, serve_cli, engine, model_mod):
                        f"head; with it: {dataclasses.replace(cfg, mtp_depth=1).n_params():,} "
                        "params)")
             cfg = dataclasses.replace(cfg, mtp_depth=mtp)
-        mla = cfg.mla is not None
+        mla, vlm = cfg.mla is not None, cfg.vlm is not None
         variants = {"fa": "sm90", "ssd": "sm90"}
         launches, out, kept = phase_serve(kernels, serve_cli, engine, cfg, FAMILY_REQUESTS,
-                                          FAMILY_PROMPT_LEN, FAMILY_GEN, variants,
-                                          compare_plain=not mla, keep=mla, cut=cut or None)
+                                          prompt_len, gen, variants, compare_plain=not mla,
+                                          keep=mla or vlm, cut=cut or None)
         if mla:
             out["mla_check"] = phase_mla_decode_check(engine, model_mod, kernels, kept[0], cfg)
-            del kept
+        if vlm:
+            out["mrope_grid_check"] = phase_mrope_grid_check(engine, kernels, *kept, cfg)
+        del kept
         runs[arch] = out
         freed(arch)
     runs["decode_simt"] = phase_decode_check(engine, model_mod, kernels["ssd"],
-                                             "jamba-v0.1-52b", variant="simt", kind="ssm")
+                                             "jamba-v0.1-52b", variant="simt", kind="ssd")
     freed("decode_check_jamba")
-    emit({"phase": "families_memory", "base_gb": base / 1e9, "after": memory})
+    for arch, layers in (("whisper-tiny", None), ("qwen2-vl-2b", 2)):
+        runs[f"decode_simt_{arch}"] = phase_decode_check(engine, model_mod, kernels["fa"], arch,
+                                                         variant="simt", layers=layers)
+        freed(f"decode_check_{arch}")
+    emit({"phase": "families_memory", "base_gb": base / 1e9, "after": memory,
+          "seconds": seconds})
     return runs
 
 
@@ -1658,7 +1780,16 @@ def _resolved_enc(store, ent):
 
 
 def phase_worker():
-    """The port's rank worker on the card: a SIGKILL in a save, a restore."""
+    """The port's rank worker on the card: a SIGKILL in a save, a restore;
+    with the ``raw`` and the ``int8`` codec, in two threads at once (each
+    spends most of its time waiting for its worker processes to reach the
+    card; each worker writes its own log). So its two timings,
+    ``spawn_s_contended`` and ``steps_5_8_wall_s_contended``, are taken
+    while the other codec's worker spawns and trains on the same card and
+    host: they do not compare with the sequential runs' ``spawn_s`` and
+    ``steps_5_8_wall_s`` before this phase ran both at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.core.tce import DiskStore
     from repro_torch.substrate.worker import RankProcess
 
@@ -1672,53 +1803,58 @@ def phase_worker():
               f"worker {cmd} -> {resp}; log tail: {log.read_text()[-2000:]}")
         return resp
 
-    out = {"phase": "worker", "spec": spec}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_worker_") as root:
-        for codec in ("raw", "int8"):
-            ckpt = str(Path(root) / codec)
-            store = DiskStore(ckpt, device="cuda")
-            t0 = time.perf_counter()
-            log = logs / f"worker-{codec}-first.log"
-            w = RankProcess(dict(spec, ckpt_dir=ckpt, codec=codec), log)
-            spawn_s = time.perf_counter() - t0
-            try:
-                call(w, log, {"cmd": "step", "upto": 4})
-                call(w, log, {"cmd": "save", "step": 4})
-                store.commit(4, 1)
-                tail = call(w, log, {"cmd": "step", "upto": 8})
-                digest = call(w, log, {"cmd": "digest"})
-                check(w.call({"cmd": "save", "step": 8, "die_at": "after_write"}) is None,
-                      "the worker answered a save it was told to die in")
-                w.proc.wait(timeout=60)
-                check(w.proc.returncode == -9, f"worker exit {w.proc.returncode}, want SIGKILL")
-            finally:
-                w.close()
-            check(store.latest_step() == 4, f"latest step {store.latest_step()}, want 4")
-            log = logs / f"worker-{codec}-second.log"
-            w = RankProcess(dict(spec, ckpt_dir=ckpt, codec=codec), log)
-            try:
-                call(w, log, {"cmd": "restore", "step": 4})
-                again = call(w, log, {"cmd": "step", "upto": 8})
-                digest_again = call(w, log, {"cmd": "digest"})
-            finally:
-                w.close()
-            encs = {e["spec"]["path"]: e["enc"] for e in store.rank_index(4, 0)}
-            n_int8 = sum(enc == "int8" for enc in encs.values())
-            losses, losses_again = tail["losses"], again["losses"]
-            check(all(math.isfinite(v) for _, v in losses + losses_again), "non-finite loss")
-            if codec == "raw":
-                check(losses_again == losses, f"losses {losses_again} != {losses}")
-                check(digest_again["leaves"] == digest["leaves"], "leaf crcs differ after restore")
-            else:
-                params = [p for p in encs if p.startswith("params/")]
-                check(n_int8 == INT8_LEAVES and all(encs[p] == "int8" for p in params
-                                                    if not p.endswith("/scale")),
-                      f"int8 checkpoint encodings: {encs}")
-            out[codec] = {"losses": losses, "losses_restored": losses_again,
-                          "bit_identical": losses_again == losses
-                          and digest_again["leaves"] == digest["leaves"],
-                          "int8_leaves": n_int8, "spawn_s": spawn_s,
-                          "steps_5_8_wall_s": tail["wall_s"]}
+    def one(root, codec):
+        ckpt = str(Path(root) / codec)
+        store = DiskStore(ckpt, device="cuda")
+        t0 = time.perf_counter()
+        log = logs / f"worker-{codec}-first.log"
+        w = RankProcess(dict(spec, ckpt_dir=ckpt, codec=codec), log)
+        spawn_s = time.perf_counter() - t0
+        try:
+            call(w, log, {"cmd": "step", "upto": 4})
+            call(w, log, {"cmd": "save", "step": 4})
+            store.commit(4, 1)
+            tail = call(w, log, {"cmd": "step", "upto": 8})
+            digest = call(w, log, {"cmd": "digest"})
+            check(w.call({"cmd": "save", "step": 8, "die_at": "after_write"}) is None,
+                  "the worker answered a save it was told to die in")
+            w.proc.wait(timeout=60)
+            check(w.proc.returncode == -9, f"worker exit {w.proc.returncode}, want SIGKILL")
+        finally:
+            w.close()
+        check(store.latest_step() == 4, f"latest step {store.latest_step()}, want 4")
+        log = logs / f"worker-{codec}-second.log"
+        w = RankProcess(dict(spec, ckpt_dir=ckpt, codec=codec), log)
+        try:
+            call(w, log, {"cmd": "restore", "step": 4})
+            again = call(w, log, {"cmd": "step", "upto": 8})
+            digest_again = call(w, log, {"cmd": "digest"})
+        finally:
+            w.close()
+        encs = {e["spec"]["path"]: e["enc"] for e in store.rank_index(4, 0)}
+        n_int8 = sum(enc == "int8" for enc in encs.values())
+        losses, losses_again = tail["losses"], again["losses"]
+        check(all(math.isfinite(v) for _, v in losses + losses_again), "non-finite loss")
+        if codec == "raw":
+            check(losses_again == losses, f"losses {losses_again} != {losses}")
+            check(digest_again["leaves"] == digest["leaves"], "leaf crcs differ after restore")
+        else:
+            params = [p for p in encs if p.startswith("params/")]
+            check(n_int8 == INT8_LEAVES and all(encs[p] == "int8" for p in params
+                                                if not p.endswith("/scale")),
+                  f"int8 checkpoint encodings: {encs}")
+        return {"losses": losses, "losses_restored": losses_again,
+                "bit_identical": losses_again == losses
+                and digest_again["leaves"] == digest["leaves"],
+                "int8_leaves": n_int8, "spawn_s_contended": spawn_s,
+                "steps_5_8_wall_s_contended": tail["wall_s"]}
+
+    out = {"phase": "worker", "spec": spec, "concurrent": ["raw", "int8"]}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_worker_") as root, \
+            ThreadPoolExecutor(max_workers=2) as pool:
+        futures = {codec: pool.submit(one, root, codec) for codec in ("raw", "int8")}
+        for codec, fut in futures.items():
+            out[codec] = fut.result()
     emit(out)
     return out
 
@@ -2275,7 +2411,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels = {"fa": fa_ops, "ssd": ssd_ops}
-    phase_device()
+    card = phase_device()
     phase_build(_build)
     timing = phase_kernel(fa_ops, fa_ref)
     torch.cuda.empty_cache()
@@ -2290,10 +2426,15 @@ def main() -> int:
                                      SSM_REQUESTS, SSM_PROMPT_LEN, SSM_GEN, {"ssd": "sm90"})
     torch.cuda.empty_cache()
     ssd_checks = phase_decode_check(engine, model_mod, ssd_ops, SSM_ARCH, variant="simt",
-                                    kind="ssm")
+                                    kind="ssd")
     ssd_checks += phase_f32_prefill_check(engine, model_mod, ssd_ops, SSM_ARCH, "simt")
     torch.cuda.empty_cache()
     families = phase_families(kernels, serve_cli, engine, model_mod)
+    # the encoder-decoder's and the VLM's serve times beside the card
+    emit({"phase": "family_times", "card": card, **{
+        arch: {k: families[arch][k] for k in ("prefill_ms", "first_prefill_ms",
+                                             "decode_ms_per_step", "peak_mem_gb")}
+        for arch in ("whisper-tiny", "qwen2-vl-2b")}})
     torch.cuda.empty_cache()
     quant = phase_quant_kernel(qb_ops, qb_ref)
     torch.cuda.empty_cache()
@@ -2309,12 +2450,16 @@ def main() -> int:
     loop = phase_closed_loop(qb_ops, qb_ref)
     fa_paths = {"serve_llama": launches["fa"],
                 "serve_olmoe": families["olmoe-1b-7b"]["launches"]["fa"],
-                "serve_jamba": families["jamba-v0.1-52b"]["launches"]["fa"]}
+                "serve_jamba": families["jamba-v0.1-52b"]["launches"]["fa"],
+                "serve_whisper": families["whisper-tiny"]["launches"]["fa"],
+                "serve_qwen2_vl": families["qwen2-vl-2b"]["launches"]["fa"]}
     entries = []
     for name, kind, src, by_path in (
             ("flash_attention_fwd", "sm90", "flash_attention_sm90.cu", fa_paths),
             ("flash_attention_fwd_simt", "simt", "flash_attention.cu",
-             {"decode_check_llama": simt_launches})):
+             {"decode_check_llama": simt_launches,
+              "decode_check_whisper": families["decode_simt_whisper-tiny"],
+              "decode_check_qwen2_vl": families["decode_simt_qwen2-vl-2b"]})):
         t = timing[kind]
         entries.append({
             "name": name, "route": "cuda", "source": FA_SRC + src, "replaces": FA_REPLACES,

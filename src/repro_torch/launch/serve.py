@@ -6,13 +6,20 @@
         --requests 8 --prompt-len 4096 --gen 32            # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
         --requests 8 --prompt-len 1024 --gen 32            # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+        --requests 8 --prompt-len 384 --gen 64             # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-2b \
+        --requests 8 --prompt-len 2048 --gen 32            # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 Counterpart of ``repro.launch.serve``, with the same flags plus ``--device``
 (default ``cuda``; without a card the CLI fails rather than run on the CPU).
 The wave is prefilled as one batch, its cache padded to prompt + gen
 positions, and decoded greedily in lockstep. Weights are random, made on the
-device from ``--seed``; prompts are drawn from ``--seed + 1``.
+device from ``--seed``; prompts are drawn from ``--seed + 1``, and so are the
+stub frontends' inputs, as in the reference: whisper's encoder frames
+(``enc_embeds``, ``enc_len`` of them) and qwen2-vl's patch embeddings
+(``vision_embeds``, in place of the first ``n_vision_tokens`` prompt tokens).
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from repro_torch import DeviceUnavailable, resolve_device
 from repro_torch.configs import get_config
 from repro_torch.models import init_params
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import zero_extras
 from repro_torch.serve.engine import decode_fn, pad_cache, prefill_fn, serve_params_cast
 
 
@@ -60,19 +68,31 @@ def make_prompts(cfg: ModelConfig, requests: int, prompt_len: int, seed: int,
                          generator=gen).to(device)
 
 
+def make_extras(cfg: ModelConfig, requests: int, prompt_len: int, seed: int,
+                device) -> Dict[str, torch.Tensor]:
+    """The stub frontends' outputs of the reference's serve loop, standard
+    normal float32 from ``seed``, the same on any device, in the shapes of
+    the training batch's zeros (:func:`zero_extras`)."""
+    gen = torch.Generator().manual_seed(seed)
+    return {k: torch.randn(v.shape, generator=gen).to(device)
+            for k, v in zero_extras(cfg, requests, prompt_len, "meta").items()}
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
 @torch.inference_mode()
-def serve_wave(params, cfg: ModelConfig, tokens: torch.Tensor, gen: int) -> Dict[str, Any]:
-    """Prefill ``tokens`` and decode ``gen`` tokens. Returns tokens and times."""
+def serve_wave(params, cfg: ModelConfig, tokens: torch.Tensor, gen: int,
+               extras: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, Any]:
+    """Prefill ``tokens`` (with the batch ``extras``, :func:`make_extras`)
+    and decode ``gen`` tokens. Returns tokens and times."""
     device = tokens.device
     b, s = tokens.shape
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = prefill_fn(params, cfg, {"tokens": tokens})
+    logits, cache = prefill_fn(params, cfg, {"tokens": tokens, **(extras or {})})
     cache = pad_cache(cfg, cache, b, s + gen)
     _sync(device)
     t_prefill = time.perf_counter() - t0
@@ -101,8 +121,9 @@ def serve_wave(params, cfg: ModelConfig, tokens: torch.Tensor, gen: int) -> Dict
 def serve(cfg: ModelConfig, requests: int, prompt_len: int, gen: int, seed: int,
           device) -> Dict[str, Any]:
     """One wave of ``cfg``: weights made on ``device`` from ``seed``, prompts
-    from ``seed + 1``, prefilled and decoded by ``serve_wave``. Returns the
-    wave's result with the config, weights and prompts."""
+    from ``seed + 1`` (and the batch extras, :func:`make_extras`),
+    prefilled and decoded by ``serve_wave``. Returns the wave's result with
+    the config, weights, prompts and extras."""
     check_prompt_len(cfg, prompt_len)
     params = serve_params_cast(init_params(cfg, seed, device, dtype=cfg.compute_dtype), cfg)
     print(f"serving {cfg.name} ({cfg.n_params():,} params) on {device}, "
@@ -110,7 +131,8 @@ def serve(cfg: ModelConfig, requests: int, prompt_len: int, gen: int, seed: int,
 
     b, s = requests, prompt_len
     tokens = make_prompts(cfg, b, s, seed + 1, device)
-    res = serve_wave(params, cfg, tokens, gen)
+    extras = make_extras(cfg, b, s, seed + 1, device)
+    res = serve_wave(params, cfg, tokens, gen, extras)
     t_prefill, t_decode = res["prefill_s"], res["decode_s"]
     steps = max(gen - 1, 1)
     sample = res["tokens"].cpu().numpy()
@@ -119,7 +141,7 @@ def serve(cfg: ModelConfig, requests: int, prompt_len: int, gen: int, seed: int,
           f"({b*(gen-1)/max(t_decode,1e-9):,.0f} tok/s, "
           f"{t_decode/steps*1e3:.1f} ms/step)")
     print(f"sample : {sample[0, :12].tolist()}")
-    return {"cfg": cfg, "params": params, "prompts": tokens, **res}
+    return {"cfg": cfg, "params": params, "prompts": tokens, "extras": extras, **res}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:

@@ -133,6 +133,7 @@ def run_single(args) -> int:
     from repro_torch.core.tce import DiskStore, TCEConfig, TCEngine
     from repro_torch.core.tce.engine import unflatten_like
     from repro_torch.data import SyntheticLMData
+    from repro_torch.models.model import zero_extras
     from repro_torch.train import (AdamConfig, TrainConfig, init_train_state,
                                    make_train_step)
 
@@ -171,6 +172,7 @@ def run_single(args) -> int:
     for step in range(start, args.steps):
         batch = {k: torch.from_numpy(v).to(device)
                  for k, v in data.batch_at(step).items()}
+        batch.update(zero_extras(cfg, args.batch, args.seq, device))
         state, metrics = step_fn(state, batch)
         final_loss = float(metrics["loss"])
         if (step + 1) % args.log_every == 0 or step == start:

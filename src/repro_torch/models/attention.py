@@ -16,6 +16,9 @@ q (B, S, H, D), k and v (B, T, KH, D).
 * ``"plain"`` — the flash kernel's plain version everywhere, so that the card
   can hold the kernel against it; nothing on a main path passes it.
 
+The encoder-decoder family's cross attention (:func:`cross_attention_forward`,
+against :func:`project_enc_kv`'s encoder k and v) takes ``attn_impl`` too.
+
 Decode is plain torch ops, as the reference computes it with jnp einsums and
 no Pallas kernel. ``attention_decode`` writes the new token into the cache
 in place (the reference returns updated copies; in place saves a copy of the
@@ -140,43 +143,85 @@ def _out_proj(p, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return y
 
 
+def _attend(q, k, v, causal: bool, attn_impl: str) -> torch.Tensor:
+    """Attention of q against k, v by ``attn_impl`` (module docstring)."""
+    attn_impl = ATTN_ALIASES.get(attn_impl, attn_impl)
+    if attn_impl == "kernel":
+        return fa_ops.flash_attention(q, k, v, causal=causal)
+    if attn_impl == "chunked":
+        return chunked_attention(q, k, v, causal)
+    if attn_impl == "plain":
+        return attention_reference(q, k, v, causal=causal)
+    raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, not {attn_impl!r}")
+
+
 def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
                       positions: torch.Tensor, causal: bool = True,
-                      use_rope: bool = True,
+                      mrope_sections=None, use_rope: bool = True,
                       attn_impl: str = "kernel") -> Tuple[torch.Tensor, dict]:
-    """Training / prefill forward. Returns (y, kv) — kv feeds the cache."""
-    attn_impl = ATTN_ALIASES.get(attn_impl, attn_impl)
-    if attn_impl not in ATTN_IMPLS:
-        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, not {attn_impl!r}")
+    """Training / prefill forward. Returns (y, kv) — kv feeds the cache.
+
+    ``positions`` is (b, s), or (3, b, s) with ``mrope_sections`` (M-RoPE).
+    """
     q, k, v = _project_qkv(p, x, cfg)
     if use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary_factor)
-        k = apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary_factor)
-    if attn_impl == "kernel":
-        o = fa_ops.flash_attention(q, k, v, causal=causal)
-    elif attn_impl == "chunked":
-        o = chunked_attention(q, k, v, causal)
-    else:
-        o = attention_reference(q, k, v, causal=causal)
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.partial_rotary_factor, mrope_sections)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.partial_rotary_factor, mrope_sections)
+    o = _attend(q, k, v, causal, attn_impl)
     return _out_proj(p, o, cfg), {"k": k, "v": v}
 
 
 def attention_decode(p, x: torch.Tensor, cfg: ModelConfig,
                      cache_k: torch.Tensor, cache_v: torch.Tensor,
-                     pos: torch.Tensor,
+                     pos: torch.Tensor, mrope_sections=None,
                      use_rope: bool = True) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step. cache_k/v: (B, T, KH, D); pos: (B,) write index.
 
     Writes the new k, v into the caches in place and returns (y, cache_k, cache_v).
+    Under M-RoPE the token takes ``pos`` in all three streams, as the reference.
     """
     b = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg)                            # s == 1
     if use_rope:
         pos2d = pos[:, None]                                     # (b, 1)
-        q = apply_rope(q, pos2d, cfg.rope_theta, cfg.partial_rotary_factor)
-        k = apply_rope(k, pos2d, cfg.rope_theta, cfg.partial_rotary_factor)
+        if mrope_sections is not None:
+            pos2d = pos2d[None].expand(3, b, 1)
+        q = apply_rope(q, pos2d, cfg.rope_theta, cfg.partial_rotary_factor, mrope_sections)
+        k = apply_rope(k, pos2d, cfg.rope_theta, cfg.partial_rotary_factor, mrope_sections)
     bidx = torch.arange(b, device=x.device)
     cache_k[bidx, pos] = k[:, 0].to(cache_k.dtype)
     cache_v[bidx, pos] = v[:, 0].to(cache_v.dtype)
     o = decode_attention(q, cache_k, cache_v, pos)
     return _out_proj(p, o, cfg), cache_k, cache_v
+
+
+def cross_attention_forward(p, x: torch.Tensor, enc_kv: Tuple[torch.Tensor, torch.Tensor],
+                            cfg: ModelConfig, attn_impl: str = "kernel") -> torch.Tensor:
+    """Cross-attention against precomputed encoder K/V (no RoPE, not causal).
+
+    The reference always runs ``chunked_attention`` here; the port takes
+    ``attn_impl`` as for self-attention, so a kernel prefill sends it to the
+    flash-attention kernel (S decoder rows against T encoder rows).
+    """
+    dt = torch_dtype(cfg.compute_dtype)
+    b, s, _ = x.shape
+    q = x.to(dt) @ p["wq"].to(dt)
+    if cfg.use_bias:
+        q = q + p["bq"].to(dt)
+    k, v = enc_kv
+    o = _attend(q.reshape(b, s, cfg.n_heads, cfg.d_head), k, v, False, attn_impl)
+    return _out_proj(p, o, cfg)
+
+
+def project_enc_kv(p, enc_out: torch.Tensor, cfg: ModelConfig):
+    """Cross-attention K/V from the encoder output, each (B, T, KH, D) and
+    contiguous (what the flash-attention kernel reads)."""
+    dt = torch_dtype(cfg.compute_dtype)
+    b, t, _ = enc_out.shape
+    x = enc_out.to(dt)
+    k = x @ p["wk"].to(dt)
+    v = x @ p["wv"].to(dt)
+    if cfg.use_bias:
+        k, v = k + p["bk"].to(dt), v + p["bv"].to(dt)
+    return (k.reshape(b, t, cfg.n_kv_heads, cfg.d_head),
+            v.reshape(b, t, cfg.n_kv_heads, cfg.d_head))

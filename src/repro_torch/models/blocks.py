@@ -12,14 +12,14 @@ the leading axis; ``scan_layers`` and ``remat`` change nothing here.
   deepseek-v3               : prefix 3x(mla, dense) + 58x(mla, moe)
   jamba                     : 4x period-8 [7x(ssm, .) + 1x(attn, .)], moe on odd
   mamba2                    : 1 segment, period [(ssm, none)]
-
-The encoder-decoder family (cross attention) waits for a later slice; its
-model refuses it in ``model.model_params``.
+  qwen2-vl                  : 1 segment, period [(attn, dense)], M-RoPE
+  whisper                   : encoder (model.py) + decoder segment with cross
+                              attention [(attn, dense, cross)]
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -36,6 +36,7 @@ from .params import ParamBuilder, stacked, torch_dtype, tree_map
 class LayerSpec:
     kind: str          # attn | mla | ssm
     mlp: str           # dense | moe | none
+    cross: bool = False   # cross attention to the encoder after the mixer
 
 
 @dataclass(frozen=True)
@@ -45,21 +46,22 @@ class Segment:
     specs: Tuple[LayerSpec, ...]
 
 
-def layer_spec(cfg: ModelConfig, i: int) -> LayerSpec:
+def layer_spec(cfg: ModelConfig, i: int, cross: bool = False) -> LayerSpec:
     kind = cfg.layer_kind(i)
     if kind == "attn" and cfg.mla is not None:
         kind = "mla"
     mlp = cfg.mlp_kind(i)
     if cfg.family == "ssm":
         mlp = "none"
-    return LayerSpec(kind, mlp)
+    return LayerSpec(kind, mlp, cross)
 
 
-def segments(cfg: ModelConfig) -> List[Segment]:
+def segments(cfg: ModelConfig, cross: bool = False) -> List[Segment]:
     """The reference's segments: a ``prefix`` of the ``first_k_dense`` leading
     dense layers of an MoE model, then one ``stack`` segment over the shortest
-    period that repeats over the rest."""
-    specs = [layer_spec(cfg, i) for i in range(cfg.n_layers)]
+    period that repeats over the rest. ``cross`` gives every layer cross
+    attention (the encoder-decoder's decoder)."""
+    specs = [layer_spec(cfg, i, cross) for i in range(cfg.n_layers)]
     segs: List[Segment] = []
     start = 0
     if cfg.moe is not None and cfg.moe.first_k_dense > 0:
@@ -87,6 +89,9 @@ def layer_params(pb: ParamBuilder, cfg: ModelConfig, spec: LayerSpec):
         p["mix"] = mla_mod.mla_params(pb, cfg)
     else:
         p["mix"] = ssm_mod.ssm_params(pb, cfg)
+    if spec.cross:
+        p["norm_c"] = norm_params(pb, cfg)
+        p["cross"] = attn_mod.attn_params(pb, cfg)
     if spec.mlp != "none":
         p["norm2"] = norm_params(pb, cfg)
         p["mlp"] = moe_mod.moe_params(pb, cfg) if spec.mlp == "moe" else mlp_params(pb, cfg)
@@ -103,33 +108,44 @@ def segment_params(pb: ParamBuilder, cfg: ModelConfig, seg: Segment):
 # --------------------------------------------------------------------------- #
 # Cache
 # --------------------------------------------------------------------------- #
-def layer_cache_spec(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int):
+def layer_cache_spec(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int,
+                     enc_len: Optional[int] = None):
     """{leaf: (shape, dtype)} of one layer's cache: k, v for attention; the
     ``ckv`` and ``kpe`` latents for MLA; the conv tail (compute dtype) and
-    the f32 SSD state for an SSM layer."""
+    the f32 SSD state for an SSM layer; and for a layer with cross
+    attention the encoder's ``ek``, ``ev`` over ``enc_len`` frames."""
     dt = torch_dtype(cfg.compute_dtype)
     if spec.kind == "attn":
         kv = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
-        return {"k": (kv, dt), "v": (kv, dt)}
-    if spec.kind == "mla":
+        out = {"k": (kv, dt), "v": (kv, dt)}
+    elif spec.kind == "mla":
         m = cfg.mla
-        return {"ckv": ((batch, max_len, m.kv_lora_rank), dt),
-                "kpe": ((batch, max_len, m.qk_rope_dim), dt)}
-    d_in, n_heads, conv_dim = ssm_mod.ssm_dims(cfg)
-    s = cfg.ssm
-    return {"conv": ((batch, s.d_conv - 1, conv_dim), dt),
-            "state": ((batch, n_heads, s.head_dim, s.d_state), torch.float32)}
+        out = {"ckv": ((batch, max_len, m.kv_lora_rank), dt),
+               "kpe": ((batch, max_len, m.qk_rope_dim), dt)}
+    else:
+        d_in, n_heads, conv_dim = ssm_mod.ssm_dims(cfg)
+        s = cfg.ssm
+        out = {"conv": ((batch, s.d_conv - 1, conv_dim), dt),
+               "state": ((batch, n_heads, s.head_dim, s.d_state), torch.float32)}
+    if spec.cross:
+        if enc_len is None:
+            raise ValueError(f"{cfg.name}: a cache with cross attention needs enc_len")
+        ekv = (batch, enc_len, cfg.n_kv_heads, cfg.d_head)
+        out.update(ek=(ekv, dt), ev=(ekv, dt))
+    return out
 
 
 def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
-                 device: torch.device | str = "cpu"):
+                 enc_len: Optional[int] = None, device: torch.device | str = "cpu"):
     """Zero cache tree. The leading dim of every leaf is ``seg.n_steps``
-    (``device="meta"`` gives the shapes and dtypes without allocating)."""
+    (``device="meta"`` gives the shapes and dtypes without allocating).
+    ``enc_len`` sizes the encoder-decoder's ``ek`` / ``ev`` leaves."""
     tree: Dict[str, Any] = {}
-    for seg in segments(cfg):
+    for seg in segments(cfg, cross=cfg.family == "encdec"):
         tree[seg.name] = {
             f"l{j}": {k: torch.zeros((seg.n_steps,) + shape, dtype=dt, device=device)
-                      for k, (shape, dt) in layer_cache_spec(cfg, spec, batch, max_len).items()}
+                      for k, (shape, dt) in layer_cache_spec(cfg, spec, batch, max_len,
+                                                             enc_len).items()}
             for j, spec in enumerate(seg.specs)}
     return tree
 
@@ -139,7 +155,7 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
 # --------------------------------------------------------------------------- #
 def layer_forward(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
                   *, mode: str, positions=None, pos=None, cache=None,
-                  attn_impl: str = "kernel"):
+                  enc_out=None, mrope_sections=None, attn_impl: str = "kernel"):
     """One layer. Returns (x, new_cache_leaves, aux_loss).
 
     ``attn_impl`` picks the mixer's implementation: ``"kernel"`` runs the
@@ -150,6 +166,12 @@ def layer_forward(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
     into the given cache leaves in place, as attention writes its k and v
     and MLA its latents. ``aux_loss`` is the MoE load-balance loss of an MoE
     layer, else a zero scalar.
+
+    A layer with cross attention attends to the encoder's k, v after its
+    mixer: projected from ``enc_out`` in train and prefill (``attn_impl``
+    as for the mixer; prefill caches them as ``ek`` / ``ev``), read from
+    the cache in decode (plain torch, as every decode attention) and passed
+    through unchanged.
     """
     attn_impl = attn_mod.ATTN_ALIASES.get(attn_impl, attn_impl)
     if attn_impl not in attn_mod.ATTN_IMPLS:
@@ -161,12 +183,13 @@ def layer_forward(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
         use_rope = cfg.pos_embedding == "rope"
         if mode == "decode":
             y, nk, nv = attn_mod.attention_decode(
-                p["mix"], h, cfg, cache["k"], cache["v"], pos, use_rope=use_rope)
+                p["mix"], h, cfg, cache["k"], cache["v"], pos,
+                mrope_sections=mrope_sections, use_rope=use_rope)
             new_cache.update(k=nk, v=nv)
         else:
             y, kv = attn_mod.attention_forward(
-                p["mix"], h, cfg, positions, causal=True, use_rope=use_rope,
-                attn_impl=attn_impl)
+                p["mix"], h, cfg, positions, causal=True, mrope_sections=mrope_sections,
+                use_rope=use_rope, attn_impl=attn_impl)
             if mode == "prefill":
                 new_cache.update(kv)
     elif spec.kind == "mla":
@@ -189,6 +212,18 @@ def layer_forward(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
             if mode == "prefill":
                 new_cache.update(st)
     x = x + y
+    if spec.cross:
+        hc = apply_norm(p["norm_c"], x, cfg)
+        if mode == "decode":
+            ekv = (cache["ek"], cache["ev"])
+            new_cache.update(ek=cache["ek"], ev=cache["ev"])      # pass through
+            cross_impl = "chunked"
+        else:
+            ekv = attn_mod.project_enc_kv(p["cross"], enc_out, cfg)
+            if mode == "prefill":
+                new_cache.update(ek=ekv[0], ev=ekv[1])
+            cross_impl = attn_impl
+        x = x + attn_mod.cross_attention_forward(p["cross"], hc, ekv, cfg, cross_impl)
     if spec.mlp != "none":
         h2 = apply_norm(p["norm2"], x, cfg)
         if spec.mlp == "moe":

@@ -1,8 +1,7 @@
-"""Shared layers: norms, RoPE (split-half, partial), MLPs, embeddings.
+"""Shared layers: norms, RoPE (split-half, partial, M-RoPE), MLPs, embeddings.
 
 Counterpart of ``repro.models.layers``. All functions are plain functions on
 tensors; parameters come from :class:`~repro_torch.models.params.ParamBuilder`.
-M-RoPE (Qwen2-VL) waits for the VLM slice and raises here.
 """
 from __future__ import annotations
 
@@ -57,16 +56,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     """Rotate pairs (x[..., :d/2], x[..., d/2:]) — 'split-half' convention.
 
     x:         (batch, seq, n_heads, d_head)
-    positions: (batch, seq) integer positions.
+    positions: (batch, seq) integer positions, or (3, batch, seq) for M-RoPE.
+
+    M-RoPE (Qwen2-VL) assigns the ``rot / 2`` frequencies in bands to the
+    (t, h, w) position streams: the first ``mrope_sections[0]`` rotate by
+    the t position, the next ``[1]`` by h, the last ``[2]`` by w.
     """
-    if mrope_sections is not None:
-        raise NotImplementedError("M-RoPE is not yet ported to repro_torch")
     d_head = x.shape[-1]
     rot = int(d_head * partial_factor)
     rot -= rot % 2
     x_rot, x_pass = x[..., :rot], x[..., rot:]
     inv = rope_frequencies(rot, theta, device=x.device)          # (rot/2,)
-    angles = positions.float()[..., None] * inv                   # (b, s, rot/2)
+    if mrope_sections is not None:
+        if sum(mrope_sections) != rot // 2:
+            raise ValueError(f"M-RoPE sections {tuple(mrope_sections)} do not sum to "
+                             f"{rot // 2}, half the rotated dims")
+        # each band's frequencies times its stream's positions, (b, s, rot/2)
+        bands = torch.split(inv, list(mrope_sections))
+        angles = torch.cat([p.float()[..., None] * f for p, f in zip(positions, bands)], -1)
+    else:
+        angles = positions.float()[..., None] * inv               # (b, s, rot/2)
     cos = torch.cos(angles)[..., None, :]                         # (b, s, 1, rot/2)
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = torch.chunk(x_rot.float(), 2, dim=-1)

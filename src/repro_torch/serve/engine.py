@@ -40,9 +40,11 @@ def pad_cache(cfg: ModelConfig, cache, batch: int, cache_len: int):
     positions (the reference's ``put`` into ``cache_struct(mode="zeros")``).
 
     A leaf whose shape does not grow with the length (an SSM layer's conv
-    tail and state) is taken as it is, with no copy.
+    tail and state, the encoder-decoder's ``ek`` / ``ev`` over the encoder's
+    frames) is taken as it is, with no copy.
     """
-    shapes = blocks.cache_struct(cfg, batch, cache_len, device="meta")
+    enc_len = cfg.encdec.enc_len if cfg.encdec is not None else None
+    shapes = blocks.cache_struct(cfg, batch, cache_len, enc_len=enc_len, device="meta")
 
     def put(want, src):
         if src.shape == want.shape:
@@ -59,7 +61,9 @@ def greedy_generate(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                     steps: int, cache_len: Optional[int] = None):
     """Reference generation loop (prefill + ``steps`` greedy decodes).
 
-    Used by tests; the serve CLI drives prefill_fn/decode_fn directly.
+    Used by tests; the serve CLI drives prefill_fn/decode_fn directly. The
+    batch's extras (``enc_embeds``, ``vision_embeds``, ``positions``) go to
+    the prefill.
     """
     b, s = batch["tokens"].shape
     cache_len = cache_len or (s + steps)

@@ -82,6 +82,7 @@ def main() -> int:
     from repro_torch.core.tce.fastcopy import crc32_stream
     from repro_torch.core.tce.sharding import shard_state, unshard_state
     from repro_torch.data import SyntheticLMData
+    from repro_torch.models.model import zero_extras
     from repro_torch.train import AdamConfig, TrainConfig, init_train_state, make_train_step
 
     deterministic(device_name)
@@ -111,7 +112,8 @@ def main() -> int:
         return init_train_state(cfg, opt_cfg, seed=seed, device=device)
 
     def make_batch(step: int) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(v).to(device) for k, v in data.batch_at(step).items()}
+        b = {k: torch.from_numpy(v).to(device) for k, v in data.batch_at(step).items()}
+        return {**b, **zero_extras(cfg, batch, seq, device)}
 
     state = fresh_state()
     step = 0

@@ -58,7 +58,7 @@ from repro_torch.train import AdamConfig, TrainConfig, init_train_state, make_tr
 ARCH = "mamba2-130m"
 OPT = dict(lr=1e-3, warmup_steps=2, decay_steps=60, grad_clip=1.0)
 #: the reference test's schedule (tests/test_system.py): step -> (category,
-#: rank); chip_smoke.py runs the same faults at full size, over 30 steps
+#: rank); chip_smoke.py runs the same faults at full size, over 28 steps
 FAULTS = {13: ("node_hw", 1), 27: ("network", 2)}
 CLOSED_LOOP = dict(total_steps=40, ckpt_every=5, n_sim_nodes=4)
 LOSS_REL_TOL = 1e-4

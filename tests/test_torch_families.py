@@ -97,11 +97,14 @@ def _close(got, want, tol):
 # --------------------------------------------------------------------------- #
 # Registry, configs, params
 # --------------------------------------------------------------------------- #
-def test_registry_holds_every_decoder_only_arch():
-    assert set(ARCHS) == {"llama3-8b", "mamba2-130m", *NEW_ARCHS}
-    for arch in ("whisper-tiny", "qwen2-vl-2b"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            get_config(arch)
+def test_registry_holds_every_reference_arch():
+    """The registry is the reference's: every decoder-only arch, the
+    encoder-decoder and the VLM."""
+    from repro.configs import ARCHS as JAX_ARCHS
+    assert set(ARCHS) >= {"llama3-8b", "mamba2-130m", *NEW_ARCHS}
+    assert ARCHS == JAX_ARCHS
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_config("whisper-large")
 
 
 @pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
@@ -170,11 +173,17 @@ def test_weight_bridge_rejects_a_mismatch_in_the_new_leaves(fault):
 
 
 @pytest.mark.parametrize("family", ["encdec", "vlm"])
-def test_model_params_still_refuses_encdec_and_vlm(family):
+def test_model_params_builds_encdec_and_vlm(family):
+    """``model_params`` builds both families with the reference's parameter
+    shapes (``tests/test_torch_encdec_vlm.py`` holds the rest)."""
     from test_torch_models import _to_port
     arch = {"encdec": "whisper-tiny", "vlm": "qwen2-vl-2b"}[family]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        model.param_shapes(_to_port(jax_get_config(arch).reduced()))
+    jcfg = jax_get_config(arch).reduced()
+    got = {k: v.shape for k, v in flatten_params(model.param_shapes(_to_port(jcfg))).items()}
+    want = {k: tuple(v.shape) for k, v in
+            flatten_pytree(jax_model.init_params(jcfg, jax.random.key(0))).items()}
+    assert got == want
+    assert any(k.startswith("encoder/") for k in got) == (family == "encdec")
 
 
 # --------------------------------------------------------------------------- #

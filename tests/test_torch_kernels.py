@@ -185,7 +185,13 @@ def cuda_device():
 # FA_CASES, ragged cases the reference cannot take, the serving shape, and
 # for the tensor-core kernel: one q and one kv tile at D 64 and 128, a ragged
 # causal case (S not a multiple of 128, so the last tile's second consumer
-# holds no row), GQA with rep 4 at D 64, and D 128 without the mask.
+# holds no row), GQA with rep 4 at D 64, and D 128 without the mask; then
+# the encoder-decoder's and the VLM's prefill shapes: whisper-tiny's encoder
+# (not causal, S = T = 1500: a last q tile of 92 rows, its second consumer
+# holding 28, and a last kv tile of 92 columns), decoder self-attention and
+# cross attention (S = 384 decoder rows against T = 1500 encoder rows), and
+# qwen2-vl-2b's GQA at rep 6; and S != T in float32 (the simt kernel: the
+# cross attention of whisper's float32 decode check).
 CARD_CASES = [c[:8] for c in FA_CASES] + [
     (2, 200, 200, 8, 2, 128, True, "bfloat16"),
     (1, 77, 77, 4, 4, 64, False, "float32"),
@@ -195,6 +201,11 @@ CARD_CASES = [c[:8] for c in FA_CASES] + [
     (1, 1000, 1000, 32, 8, 128, True, "bfloat16"),
     (2, 384, 384, 16, 4, 64, True, "bfloat16"),
     (2, 300, 300, 8, 2, 128, False, "bfloat16"),
+    (8, 1500, 1500, 6, 6, 64, False, "bfloat16"),
+    (8, 384, 384, 6, 6, 64, True, "bfloat16"),
+    (8, 384, 1500, 6, 6, 64, False, "bfloat16"),
+    (8, 2048, 2048, 12, 2, 128, True, "bfloat16"),
+    (2, 17, 1500, 6, 6, 64, False, "float32"),
 ]
 
 

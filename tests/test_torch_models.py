@@ -75,11 +75,13 @@ def test_config_copy_counts_every_reference_arch(arch):
     assert dataclasses.asdict(port.reduced()) == dataclasses.asdict(ref.reduced())
 
 
-def test_unported_arch_raises():
+def test_every_reference_arch_resolves_and_unknown_raises():
+    """The encoder-decoder and VLM archs, the last two the port took, resolve
+    to the reference's configs, and only a name outside the registry raises
+    (ValueError)."""
     for arch in ("whisper-tiny", "qwen2-vl-2b"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            get_config(arch)
-    with pytest.raises(ValueError):
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jax_get_config(arch))
+    with pytest.raises(ValueError, match="unknown arch"):
         get_config("no-such-arch")
 
 
@@ -169,9 +171,15 @@ def test_apply_rope_vs_jax(partial):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
-def test_apply_rope_rejects_mrope():
-    with pytest.raises(NotImplementedError):
-        layers.apply_rope(torch.zeros(1, 2, 1, 16), torch.zeros(3, 1, 2), 1e4, 1.0, (2, 3, 3))
+def test_apply_rope_mrope_sections_must_cover_half_rot():
+    """M-RoPE runs (``tests/test_torch_encdec_vlm.py`` holds it to the
+    reference), and ``apply_rope`` rejects sections that do not cover half
+    the rotated dims, which the reference asserts."""
+    x, pos = torch.zeros(1, 2, 1, 16), torch.zeros(3, 1, 2)
+    assert layers.apply_rope(x, pos, 1e4, 1.0, (2, 3, 3)).shape == x.shape
+    for sections in ((2, 3, 2), (4, 3, 3)):
+        with pytest.raises(ValueError, match="do not sum"):
+            layers.apply_rope(x, pos, 1e4, 1.0, sections)
 
 
 @pytest.mark.parametrize("act", ["swiglu", "gelu"])

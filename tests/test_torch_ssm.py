@@ -123,17 +123,20 @@ def test_cache_struct_ssm_leaves():
     assert cache["state"].shape == (2, 3, nh, 16, 16) and cache["state"].dtype == torch.float32
 
 
-def test_layer_spec_still_refuses_moe_and_mla():
-    """MoE and MLA layers are ported (the hybrid's SSM layers take MoE MLPs);
-    what the port still refuses is the encoder-decoder and VLM families. The
-    name is the one this test had while the port refused MoE and MLA layers."""
+def test_layer_spec_builds_every_reference_kind():
+    """MoE and MLA layers build (the hybrid's SSM layers take MoE MLPs), and
+    so do the encoder-decoder (a ``cross`` layer spec) and VLM families: the
+    port refuses no layer kind of the reference."""
     for arch in ("jamba-v0.1-52b", "olmoe-1b-7b", "deepseek-v3-671b"):
         cfg = _to_port(jax_get_config(arch).reduced())
         kinds = {(sp.kind, sp.mlp) for seg in blocks.segments(cfg) for sp in seg.specs}
         assert kinds & {("ssm", "moe"), ("attn", "moe"), ("mla", "moe")}
     for arch in ("whisper-tiny", "qwen2-vl-2b"):
-        with pytest.raises(NotImplementedError):
-            model.param_shapes(_to_port(jax_get_config(arch).reduced()))
+        cfg = _to_port(jax_get_config(arch).reduced())
+        specs = [sp for seg in blocks.segments(cfg, cross=cfg.family == "encdec")
+                 for sp in seg.specs]
+        assert {sp.cross for sp in specs} == {cfg.family == "encdec"}
+        assert model.param_shapes(cfg)["segments"]["stack"]["l0"]["mix"]["wq"].shape[0] == 2
 
 
 # --------------------------------------------------------------------------- #
