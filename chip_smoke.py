@@ -44,6 +44,15 @@ random weights:
   Qwen2-VL's own M-RoPE positions for a 32 x 32 patch grid, kernel against
   plain and against the default positions; decode against forward in
   float32 for whisper whole and qwen2-vl at 2 layers, on ``simt``;
+* the parallel layer on a 1-rank NCCL group: olmoe-1b-7b's prefill, on the
+  weights of its family wave, under a (1, 1) ``("data", "model")`` mesh,
+  every MoE layer through the shard_map MoE (``all_to_all``, ``all_gather``
+  on NCCL, counted) and every attention on ``sm90``, against the no-mesh
+  ``scatter`` prefill at no-drop capacity with its routing replayed; after
+  the TCE engine phase, one ``compress_pod_grads`` step of the training
+  state on a (1,) ``("pod",)`` mesh (the int8 payload all_gathered) against
+  the plain step fed the dequantised int8 gradients, bit for bit in
+  deterministic mode; the group is destroyed before any phase spawns ranks;
 * one training rank, 4 layers (an Adam state of all 32 does not fit one
   card): ``make_train_step`` for 8 timed steps of 4 x 1024 tokens, then a
   TCE checkpoint of the trained params through ``DiskStore`` with the
@@ -109,15 +118,17 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores and HBM3,
+# defined once in the port's launch/mesh.py
+from repro_torch.launch.mesh import H100_HBM_BYTES_S as PEAK_BYTES_S  # noqa: E402
+from repro_torch.launch.mesh import H100_PEAK_BF16_FLOPS as PEAK_BF16_FLOPS  # noqa: E402
+from repro_torch.launch.mesh import H100_PEAK_F32_FLOPS as PEAK_F32_FLOPS  # noqa: E402
 
 # The main path: llama3-8b serving, one wave of 8 requests x 1024-token
 # prompts, 32 generated tokens.
 ARCH, REQUESTS, PROMPT_LEN, GEN, SEED = "llama3-8b", 8, 1024, 32, 0
-
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores and HBM3.
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES_S = 3.35e12
 
 # Kernel vs plain tolerances. f32: the same arithmetic in another summation
 # order. bf16: the plain version rounds the normalised softmax weights to
@@ -880,12 +891,14 @@ def phase_mrope_grid_check(engine, kernels, params, batch, cfg):
     return out
 
 
-def phase_families(kernels, serve_cli, engine, model_mod):
+def phase_families(kernels, serve_cli, engine, model_mod, mesh):
     """The MoE, hybrid, MLA, encoder-decoder and VLM families at full width
-    (``FAMILY_SERVES``): each serve wave (qwen2-vl's with its prefill at
-    grid M-RoPE positions, deepseek-v3's with its absorbed decode check),
-    then the float32 decode checks of jamba (2 layers), whisper-tiny (whole)
-    and qwen2-vl (2 layers). Each frees its weights before the next."""
+    (``FAMILY_SERVES``): each serve wave (olmoe's then again under ``mesh``
+    through the shard_map MoE on the same weights, qwen2-vl's with its
+    prefill at grid M-RoPE positions, deepseek-v3's with its absorbed decode
+    check), then the float32 decode checks of jamba (2 layers), whisper-tiny
+    (whole) and qwen2-vl (2 layers). Each frees its weights before the
+    next."""
     from repro_torch.configs import get_config
 
     def freed(what):
@@ -914,11 +927,13 @@ def phase_families(kernels, serve_cli, engine, model_mod):
                        f"head; with it: {dataclasses.replace(cfg, mtp_depth=1).n_params():,} "
                        "params)")
             cfg = dataclasses.replace(cfg, mtp_depth=mtp)
-        mla, vlm = cfg.mla is not None, cfg.vlm is not None
+        mla, vlm, par = cfg.mla is not None, cfg.vlm is not None, arch == PARALLEL_ARCH
         variants = {"fa": "sm90", "ssd": "sm90"}
         launches, out, kept = phase_serve(kernels, serve_cli, engine, cfg, FAMILY_REQUESTS,
                                           prompt_len, gen, variants, compare_plain=not mla,
-                                          keep=mla or vlm, cut=cut or None)
+                                          keep=mla or vlm or par, cut=cut or None)
+        if par:
+            runs["parallel_moe"] = phase_parallel_moe(engine, kernels, *kept, cfg, mesh)
         if mla:
             out["mla_check"] = phase_mla_decode_check(engine, model_mod, kernels, kept[0], cfg)
         if vlm:
@@ -936,6 +951,178 @@ def phase_families(kernels, serve_cli, engine, model_mod):
     emit({"phase": "families_memory", "base_gb": base / 1e9, "after": memory,
           "seconds": seconds})
     return runs
+
+
+# The parallel phase: a 1-rank NCCL group on the card with a (1, 1)
+# ("data", "model") mesh, under which olmoe's prefill takes the shard_map MoE
+# (PARALLEL_ARCH's weights of its family serve wave), and a (1,) ("pod",)
+# mesh for one compress_pod_grads step of the train phase's state.
+PARALLEL_ARCH = "olmoe-1b-7b"
+
+
+def parallel_open():
+    """The 1-rank NCCL process group on cuda:0 (an in-memory store: no port)
+    and the phase's two meshes."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1, rank=0,
+                            device_id=torch.device("cuda:0"))
+    return {"data_model": make_local_mesh(("data", "model")), "pod": make_local_mesh(("pod",)),
+            "open_s": time.perf_counter() - t0}
+
+
+def parallel_close(card, meshes, moe, step) -> None:
+    """Destroys the group (before any phase spawns ranks) and prints the
+    phase's line."""
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    emit({"phase": "parallel", "card": card, "open_s": meshes["open_s"], "moe": moe,
+          "step": step})
+
+
+def phase_parallel_moe(engine, kernels, params, batch, cfg, mesh):
+    """olmoe's prefill at full size under the 1-rank mesh: every MoE layer
+    through ``moe_forward_shard_map`` (all_to_all and all_gather on NCCL),
+    every attention on the sm90 kernel. Held to the no-mesh ``scatter``
+    prefill at no-drop capacity (the two group the tokens differently) with
+    the mesh pass's routing replayed."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel import compat
+    from repro_torch.parallel.sharding import use_sharding
+
+    cfg = no_drop(cfg)
+    n_moe = sum(cfg.mlp_kind(i) == "moe" for i in range(cfg.n_layers))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def mesh_prefill():
+        with use_sharding(mesh):
+            return engine.prefill_fn(params, cfg, batch)
+
+    with Routing(moe_mod) as routing:
+        routing.record()
+        reset_counts(kernels)
+        compat.COLLECTIVES.clear()
+        (got, _), first_ms = timed(mesh_prefill)
+        launches = {k: ops.LAUNCHES for k, ops in kernels.items()}
+        by_variant = {k: dict(ops.LAUNCHES_BY_VARIANT) for k, ops in kernels.items()}
+        collectives = dict(compat.COLLECTIVES)
+        routing.replay()
+        (want, _), scatter_ms = timed(lambda: engine.prefill_fn(params, cfg, batch))
+    _, warm_ms = timed(mesh_prefill)
+    got, want = got.float(), want.float()
+    b, s = batch["tokens"].shape
+    out = {"arch": cfg.name, "mesh": {"data": 1, "model": 1}, "requests": b, "prompt_len": s,
+           "capacity_factor": cfg.moe.capacity_factor, "moe_layers": n_moe,
+           "launches": launches, "launches_by_variant": by_variant,
+           "collectives": collectives, "mesh_first_prefill_ms": first_ms,
+           "mesh_prefill_ms": warm_ms, "scatter_replayed_prefill_ms": scatter_ms,
+           "logits_max_abs_diff": float((got - want).abs().max()),
+           "logits_scale": float(want.abs().max()), "logits_rel_tol": LOGITS_REL_TOL,
+           "argmax_agree": float((got.argmax(-1) == want.argmax(-1)).float().mean()),
+           "routing_flips": routing.flips, "routing_flip_gap": routing.flip_gap,
+           "routed_tokens": b * s * n_moe}
+    check(bool(torch.isfinite(got).all()), "non-finite logits under the mesh")
+    want_fa = {v: layer_counts(cfg)["fa"] if v == "sm90" else 0
+               for v in kernels["fa"].LAUNCHES_BY_VARIANT}
+    check(launches == {"fa": layer_counts(cfg)["fa"], "ssd": 0} and by_variant["fa"] == want_fa,
+          f"mesh prefill launched {launches} {by_variant}, want {want_fa} flash attention")
+    # per MoE layer: the dispatch and return all_to_all, the expert weights'
+    # three all_gathers over data, aux's pmean over model and data, the
+    # output's reassembly over data and model
+    want_coll = {"all_to_all": 2 * n_moe, "all_gather": 5 * n_moe, "all_reduce": 2 * n_moe}
+    check(collectives == want_coll, f"collectives {collectives}, want {want_coll}")
+    check_flips(routing.flips, routing.flip_gap, out["routed_tokens"], f"{cfg.name} mesh")
+    check(out["logits_max_abs_diff"] <= LOGITS_REL_TOL * out["logits_scale"],
+          f"mesh vs scatter prefill logits: max |diff| {out['logits_max_abs_diff']} > "
+          f"{LOGITS_REL_TOL} x {out['logits_scale']}")
+    return out
+
+
+PARALLEL_STEP = TRAIN_STEPS + 2     # the first batch no earlier step took
+
+
+def phase_parallel_step(cfg, state, data, mesh):
+    """One ``compress_pod_grads`` step of the train phase's state on the
+    1-rank pod axis (the int8 payload all_gathered on NCCL), against the
+    plain step fed ``s * q`` of ``_quant_leaf(g)``: equal bit for bit in
+    deterministic mode, params and moments. ``state`` takes the plain step."""
+    from repro_torch import deterministic
+    from repro_torch.models.params import tree_items, tree_map
+    from repro_torch.parallel import compat
+    from repro_torch.train import AdamConfig, TrainConfig, make_train_step
+    from repro_torch.train.optimizer import adam_update
+    from repro_torch.train.trainer import _grads_and_metrics, _quant_leaf
+
+    opt = AdamConfig(lr=TRAIN_LR, warmup_steps=0, decay_steps=100)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in data.batch_at(PARALLEL_STEP).items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    mine = state._replace(step=state.step.clone(), params=tree_map(torch.clone, state.params),
+                          opt=tree_map(torch.clone, state.opt))
+
+    def fed(g):
+        q, s = _quant_leaf(g.to(torch.float32))
+        return (q.to(torch.float32) * s).to(g.dtype)
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    deterministic("cuda")
+    try:
+        step = make_train_step(cfg, opt, TrainConfig(compress_pod_grads=True), mesh=mesh)
+        compat.COLLECTIVES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mine, metrics = step(mine, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads, _ = _grads_and_metrics(state.params, cfg, batch, TrainConfig())
+        adam_update(state.params, tree_map(fed, grads), state.opt, state.step, opt,
+                    rng=state.rng)
+        del grads
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        differ = [p for tree in ("params", "opt") for (p, x), (_, y) in
+                  zip(tree_items(getattr(mine, tree)), tree_items(getattr(state, tree)))
+                  if not same(x, y)]
+        # the step's cost again, warm (the first pays deterministic mode's
+        # first calls); it moves ``mine`` past the compared state
+        collectives = dict(compat.COLLECTIVES)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        step(mine, batch)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t3
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    del mine
+    leaves = list(tree_items(state.params))
+    int8_bytes = sum(t.numel() + 4 * t.numel() // t.shape[-1] for _, t in leaves)
+    out = {"arch": ARCH, "n_layers": cfg.n_layers, "mesh": {"pod": 1},
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "deterministic": True,
+           "compressed_step_ms": (t1 - t0) * 1e3, "plain_fed_step_ms": (t2 - t1) * 1e3,
+           "compressed_step_warm_ms": warm_s * 1e3, "held_before_gb": held_gb,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "collectives": collectives, "leaves": len(leaves),
+           "int8_payload_bytes": int8_bytes,
+           "f32_grad_bytes": sum(4 * t.numel() for _, t in leaves),
+           "loss": float(metrics["loss"]), "leaves_differing": len(differ)}
+    check(not differ, f"compressed step vs plain step fed s * q: {differ} differ")
+    check(out["collectives"].get("all_gather") == 2 * len(leaves),
+          f"collectives {out['collectives']}: want 2 all_gathers per leaf")
+    check(math.isfinite(out["loss"]), "non-finite loss")
+    return out
 
 
 def phase_f32_prefill_check(engine, model_mod, ops, arch, variant):
@@ -2396,7 +2583,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -2429,7 +2615,8 @@ def main() -> int:
                                     kind="ssd")
     ssd_checks += phase_f32_prefill_check(engine, model_mod, ssd_ops, SSM_ARCH, "simt")
     torch.cuda.empty_cache()
-    families = phase_families(kernels, serve_cli, engine, model_mod)
+    meshes = parallel_open()
+    families = phase_families(kernels, serve_cli, engine, model_mod, meshes["data_model"])
     # the encoder-decoder's and the VLM's serve times beside the card
     emit({"phase": "family_times", "card": card, **{
         arch: {k: families[arch][k] for k in ("prefill_ms", "first_prefill_ms",
@@ -2441,8 +2628,10 @@ def main() -> int:
     cfg, state, data, step_fn, train = phase_train(fa_ops)
     ckpt = phase_checkpoint(cfg, state, data, qb_ops, qb_ref)
     engine_run = phase_tce_engine(cfg, state, data, step_fn, train, qb_ops, qb_ref)
+    par_step = phase_parallel_step(cfg, state, data, meshes["pod"])
     del state, step_fn
     torch.cuda.empty_cache()
+    parallel_close(card, meshes, families["parallel_moe"], par_step)
     phase_worker()
     phase_capstone()
     single = phase_train_single(qb_ops, qb_ref)
@@ -2450,6 +2639,7 @@ def main() -> int:
     loop = phase_closed_loop(qb_ops, qb_ref)
     fa_paths = {"serve_llama": launches["fa"],
                 "serve_olmoe": families["olmoe-1b-7b"]["launches"]["fa"],
+                "parallel_olmoe_mesh": families["parallel_moe"]["launches"]["fa"],
                 "serve_jamba": families["jamba-v0.1-52b"]["launches"]["fa"],
                 "serve_whisper": families["whisper-tiny"]["launches"]["fa"],
                 "serve_qwen2_vl": families["qwen2-vl-2b"]["launches"]["fa"]}

@@ -2,8 +2,9 @@
 
 Counterpart of ``repro.kernels.flash_attention.ops``: same signature and
 model layout, q (B, S, H, D) and k, v (B, T, KH, D). A tensor on the CPU goes
-to the plain version (:func:`ref.attention_reference`); a tensor on a CUDA
-device goes to a hand-written kernel, or the call raises. Which kernel is
+to the plain version (:func:`ref.attention_reference`), and so does a meta
+tensor (shapes only, for the dry run); a tensor on a CUDA device goes to a
+hand-written kernel, or the call raises. Which kernel is
 fixed by dtype and head dim (:func:`variant`), never by a failure:
 
 * ``"sm90"``: bf16 at D 64 and 128, on the tensor cores (wgmma fed by TMA),
@@ -27,6 +28,8 @@ import torch
 from .. import _build
 from .ref import attention_reference
 
+# the plain version's devices: the CPU, and meta tensors (shapes only)
+_PLAIN_DEVICES = ("cpu", "meta")
 LAUNCHES = 0
 LAUNCHES_BY_VARIANT = {"sm90": 0, "simt": 0}
 
@@ -78,7 +81,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, S, H, D); k, v: (B, T, KH, D) -> (B, S, H, D), in q's dtype."""
     global LAUNCHES
     _check(q, k, v)
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN_DEVICES:
         return attention_reference(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")

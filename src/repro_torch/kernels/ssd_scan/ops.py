@@ -4,8 +4,9 @@ Counterpart of ``repro.kernels.ssd_scan.ops``: the same signature and the
 contract of ``ssd_chunked`` (x (b, s, nh, p), dt (b, s, nh), A (nh,), B and C
 (b, s, g, n), optional init state (b, nh, p, n); returns y in x's dtype and
 the final state in float32; the chunk is ``min(chunk, s)`` and must divide
-s). A tensor on the CPU goes to the plain version (:func:`ref.ssd_reference`);
-a tensor on a CUDA device goes to a hand-written kernel, or the call raises.
+s). A tensor on the CPU goes to the plain version (:func:`ref.ssd_reference`),
+and so does a meta tensor (shapes only, for the dry run); a tensor on a CUDA
+device goes to a hand-written kernel, or the call raises.
 Which kernel is fixed by shape, dtype and alignment before the launch
 (:func:`variant`), never by a failure:
 
@@ -37,6 +38,8 @@ import torch
 from .. import _build
 from .ref import chunk_scan_reference, chunk_state_reference, ssd_reference, state_pass_reference
 
+# the plain version's devices: the CPU, and meta tensors (shapes only)
+_PLAIN_DEVICES = ("cpu", "meta")
 LAUNCHES = 0
 LAUNCHES_BY_VARIANT = {"sm90": 0, "simt": 0}
 
@@ -156,7 +159,7 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 def chunk_state(x, dt, A, B, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pass 1: (states (b, s/c, nh, p, n) f32, cum (b, nh, s) f32)."""
-    if x.device.type == "cpu":
+    if x.device.type in _PLAIN_DEVICES:
         return chunk_state_reference(x, dt, A, B, chunk)
     _sm90_check(x, B, B, chunk)
     b, s, nh, p = x.shape
@@ -176,7 +179,7 @@ def chunk_state(x, dt, A, B, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
 def state_pass(states, cum, chunk: int, init_state=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pass 2: (h_in, final). On the card h_in, the state at each chunk's
     start, comes back in bf16 (pass 3's operand type)."""
-    if states.device.type == "cpu":
+    if states.device.type in _PLAIN_DEVICES:
         return state_pass_reference(states, cum, chunk, init_state)
     b, l, nh, p, n = states.shape
     if cum.shape != (b, nh, l * chunk):
@@ -196,7 +199,7 @@ def state_pass(states, cum, chunk: int, init_state=None) -> Tuple[torch.Tensor, 
 def chunk_scan(x, dt, B, C, cum, h_in, chunk: int) -> torch.Tensor:
     """Pass 3: y (b, s, nh, p) in x's dtype. On the card h_in is rounded to
     bf16 first (a no-op for pass 2's output)."""
-    if x.device.type == "cpu":
+    if x.device.type in _PLAIN_DEVICES:
         return chunk_scan_reference(x, dt, B, C, cum, h_in, chunk)
     _sm90_check(x, B, C, chunk)
     b, s, nh, p = x.shape
@@ -226,7 +229,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     c = min(chunk, s)
     if c < 1 or s % c:
         raise ValueError(f"sequence length {s} is not a multiple of chunk {c}")
-    if x.device.type == "cpu":
+    if x.device.type in _PLAIN_DEVICES:
         return ssd_reference(x, dt, A, B, C, chunk=c, init_state=init_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cpu or cuda, not {x.device}")

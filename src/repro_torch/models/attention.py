@@ -48,16 +48,16 @@ ATTN_ALIASES = {"xla": "chunked"}        # the reference's name for the same mat
 def attn_params(pb: ParamBuilder, cfg: ModelConfig):
     d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     p = {
-        "wq": pb.param((d, h * dh)),
-        "wk": pb.param((d, kh * dh)),
-        "wv": pb.param((d, kh * dh)),
-        "wo": pb.param((h * dh, d)),
+        "wq": pb.param((d, h * dh), ("embed", "heads")),
+        "wk": pb.param((d, kh * dh), ("embed", "kv_heads")),
+        "wv": pb.param((d, kh * dh), ("embed", "kv_heads")),
+        "wo": pb.param((h * dh, d), ("heads", "embed")),
     }
     if cfg.use_bias:
-        p["bq"] = pb.param((h * dh,), init="zeros")
-        p["bk"] = pb.param((kh * dh,), init="zeros")
-        p["bv"] = pb.param((kh * dh,), init="zeros")
-        p["bo"] = pb.param((d,), init="zeros")
+        p["bq"] = pb.param((h * dh,), ("heads",), init="zeros")
+        p["bk"] = pb.param((kh * dh,), ("kv_heads",), init="zeros")
+        p["bv"] = pb.param((kh * dh,), ("kv_heads",), init="zeros")
+        p["bo"] = pb.param((d,), ("embed",), init="zeros")
     return p
 
 

@@ -23,6 +23,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.parallel.sharding import constrain
+
 from . import attention as attn_mod
 from . import mla as mla_mod
 from . import moe as moe_mod
@@ -110,42 +112,57 @@ def segment_params(pb: ParamBuilder, cfg: ModelConfig, seg: Segment):
 # --------------------------------------------------------------------------- #
 def layer_cache_spec(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int,
                      enc_len: Optional[int] = None):
-    """{leaf: (shape, dtype)} of one layer's cache: k, v for attention; the
-    ``ckv`` and ``kpe`` latents for MLA; the conv tail (compute dtype) and
-    the f32 SSD state for an SSM layer; and for a layer with cross
-    attention the encoder's ``ek``, ``ev`` over ``enc_len`` frames."""
+    """{leaf: (shape, dtype, logical axes)} of one layer's cache: k, v for
+    attention; the ``ckv`` and ``kpe`` latents for MLA; the conv tail
+    (compute dtype) and the f32 SSD state for an SSM layer; and for a layer
+    with cross attention the encoder's ``ek``, ``ev`` over ``enc_len``
+    frames."""
     dt = torch_dtype(cfg.compute_dtype)
     if spec.kind == "attn":
         kv = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
-        out = {"k": (kv, dt), "v": (kv, dt)}
+        ax = ("batch", "cache_seq", "act_kv_heads", None)
+        out = {"k": (kv, dt, ax), "v": (kv, dt, ax)}
     elif spec.kind == "mla":
         m = cfg.mla
-        out = {"ckv": ((batch, max_len, m.kv_lora_rank), dt),
-               "kpe": ((batch, max_len, m.qk_rope_dim), dt)}
+        ax = ("batch", "cache_seq", None)
+        out = {"ckv": ((batch, max_len, m.kv_lora_rank), dt, ax),
+               "kpe": ((batch, max_len, m.qk_rope_dim), dt, ax)}
     else:
         d_in, n_heads, conv_dim = ssm_mod.ssm_dims(cfg)
         s = cfg.ssm
-        out = {"conv": ((batch, s.d_conv - 1, conv_dim), dt),
-               "state": ((batch, n_heads, s.head_dim, s.d_state), torch.float32)}
+        out = {"conv": ((batch, s.d_conv - 1, conv_dim), dt, ("batch", None, "act_mlp")),
+               "state": ((batch, n_heads, s.head_dim, s.d_state), torch.float32,
+                         ("batch", "state_heads", None, None))}
     if spec.cross:
         if enc_len is None:
             raise ValueError(f"{cfg.name}: a cache with cross attention needs enc_len")
         ekv = (batch, enc_len, cfg.n_kv_heads, cfg.d_head)
-        out.update(ek=(ekv, dt), ev=(ekv, dt))
+        ax = ("batch", None, "act_kv_heads", None)
+        out.update(ek=(ekv, dt, ax), ev=(ekv, dt, ax))
     return out
 
 
 def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
-                 enc_len: Optional[int] = None, device: torch.device | str = "cpu"):
-    """Zero cache tree. The leading dim of every leaf is ``seg.n_steps``
-    (``device="meta"`` gives the shapes and dtypes without allocating).
-    ``enc_len`` sizes the encoder-decoder's ``ek`` / ``ev`` leaves."""
+                 enc_len: Optional[int] = None, device: torch.device | str = "cpu",
+                 mode: str = "zeros"):
+    """Zero cache tree (``mode="zeros"``), or the same tree of logical-axis
+    tuples (``mode="axes"``). The leading dim of every leaf is
+    ``seg.n_steps`` (``device="meta"`` gives the shapes and dtypes without
+    allocating). ``enc_len`` sizes the encoder-decoder's ``ek`` / ``ev``
+    leaves."""
+    if mode not in ("zeros", "axes"):
+        raise ValueError(f"unknown mode {mode!r}")
+
+    def leaf(n_steps, shape, dt, ax):
+        if mode == "axes":
+            return (None,) + ax
+        return torch.zeros((n_steps,) + shape, dtype=dt, device=device)
+
     tree: Dict[str, Any] = {}
     for seg in segments(cfg, cross=cfg.family == "encdec"):
         tree[seg.name] = {
-            f"l{j}": {k: torch.zeros((seg.n_steps,) + shape, dtype=dt, device=device)
-                      for k, (shape, dt) in layer_cache_spec(cfg, spec, batch, max_len,
-                                                             enc_len).items()}
+            f"l{j}": {k: leaf(seg.n_steps, *v)
+                      for k, v in layer_cache_spec(cfg, spec, batch, max_len, enc_len).items()}
             for j, spec in enumerate(seg.specs)}
     return tree
 
@@ -211,7 +228,7 @@ def layer_forward(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
             y, st = ssm_mod.ssm_forward(p["mix"], h, cfg, use_kernel=attn_impl == "kernel")
             if mode == "prefill":
                 new_cache.update(st)
-    x = x + y
+    x = constrain(x + y, ("batch", "seq", "act_embed"))
     if spec.cross:
         hc = apply_norm(p["norm_c"], x, cfg)
         if mode == "decode":
@@ -231,7 +248,7 @@ def layer_forward(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
             aux = aux + a
         else:
             y2 = apply_mlp(p["mlp"], h2, cfg)
-        x = x + y2
+        x = constrain(x + y2, ("batch", "seq", "act_embed"))
     return x, new_cache, aux
 
 

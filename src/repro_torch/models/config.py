@@ -119,6 +119,19 @@ class ModelConfig:
     remat_policy: str = "full"          # full | dots | none
 
     # ------------------------------------------------------------------ #
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def is_quadratic(self) -> bool:
+        """True when full O(L^2) attention dominates (long_500k is skipped)."""
+        return self.family not in ("ssm", "hybrid")
+
+    @property
+    def has_decoder(self) -> bool:
+        return True  # every assigned arch has a decode step (whisper is enc-dec)
+
     def layer_kind(self, i: int) -> str:
         """'attn' or 'ssm' for decoder layer i."""
         if self.family == "ssm":

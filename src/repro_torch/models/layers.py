@@ -20,9 +20,9 @@ from .params import ParamBuilder, torch_dtype
 def norm_params(pb: ParamBuilder, cfg: ModelConfig):
     if cfg.norm == "nonparam_ln":
         return {}
-    p = {"scale": pb.param((cfg.d_model,), init="ones")}
+    p = {"scale": pb.param((cfg.d_model,), ("embed",), init="ones")}
     if cfg.norm == "layernorm":
-        p["bias"] = pb.param((cfg.d_model,), init="zeros")
+        p["bias"] = pb.param((cfg.d_model,), ("embed",), init="zeros")
     return p
 
 
@@ -88,10 +88,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # --------------------------------------------------------------------------- #
 def mlp_params(pb: ParamBuilder, cfg: ModelConfig, d_ff: Optional[int] = None):
     d_ff = d_ff or cfg.d_ff
-    p = {"wi": pb.param((cfg.d_model, d_ff))}
+    p = {"wi": pb.param((cfg.d_model, d_ff), ("embed", "mlp"))}
     if cfg.activation == "swiglu":
-        p["wg"] = pb.param((cfg.d_model, d_ff))
-    p["wo"] = pb.param((d_ff, cfg.d_model))
+        p["wg"] = pb.param((cfg.d_model, d_ff), ("embed", "mlp"))
+    p["wo"] = pb.param((d_ff, cfg.d_model), ("mlp", "embed"))
     return p
 
 
@@ -110,9 +110,10 @@ def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # Embedding / head
 # --------------------------------------------------------------------------- #
 def embedding_params(pb: ParamBuilder, cfg: ModelConfig):
-    p = {"table": pb.param((cfg.vocab_size, cfg.d_model), init="embed", scale=0.02)}
+    p = {"table": pb.param((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                           init="embed", scale=0.02)}
     if not cfg.tie_embeddings:
-        p["head"] = pb.param((cfg.d_model, cfg.vocab_size))
+        p["head"] = pb.param((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
     return p
 
 

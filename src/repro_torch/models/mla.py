@@ -42,15 +42,15 @@ def mla_params(pb: ParamBuilder, cfg: ModelConfig):
     d, nh = cfg.d_model, cfg.n_heads
     qk = m.qk_nope_dim + m.qk_rope_dim
     return {
-        "w_dq": pb.param((d, m.q_lora_rank)),
-        "q_scale": pb.param((m.q_lora_rank,), init="ones"),
-        "w_uq": pb.param((m.q_lora_rank, nh * qk)),
-        "w_dkv": pb.param((d, m.kv_lora_rank)),
-        "kv_scale": pb.param((m.kv_lora_rank,), init="ones"),
-        "w_kr": pb.param((d, m.qk_rope_dim)),
-        "w_uk": pb.param((m.kv_lora_rank, nh * m.qk_nope_dim)),
-        "w_uv": pb.param((m.kv_lora_rank, nh * m.v_head_dim)),
-        "w_o": pb.param((nh * m.v_head_dim, d)),
+        "w_dq": pb.param((d, m.q_lora_rank), ("embed", "lora")),
+        "q_scale": pb.param((m.q_lora_rank,), ("lora",), init="ones"),
+        "w_uq": pb.param((m.q_lora_rank, nh * qk), ("lora", "heads")),
+        "w_dkv": pb.param((d, m.kv_lora_rank), ("embed", "lora")),
+        "kv_scale": pb.param((m.kv_lora_rank,), ("lora",), init="ones"),
+        "w_kr": pb.param((d, m.qk_rope_dim), ("embed", "lora")),
+        "w_uk": pb.param((m.kv_lora_rank, nh * m.qk_nope_dim), ("lora", "heads")),
+        "w_uv": pb.param((m.kv_lora_rank, nh * m.v_head_dim), ("lora", "heads")),
+        "w_o": pb.param((nh * m.v_head_dim, d), ("heads", "embed")),
     }
 
 

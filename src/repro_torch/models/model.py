@@ -37,6 +37,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.parallel.sharding import constrain
 
 from . import attention as attn_mod
 from . import blocks
@@ -62,7 +63,7 @@ def model_params(pb: ParamBuilder, cfg: ModelConfig):
     if cfg.mtp_depth > 0:
         # DeepSeek MTP (depth 1): one more layer of the last layer's kind
         p["mtp"] = {
-            "proj": pb.param((2 * cfg.d_model, cfg.d_model)),
+            "proj": pb.param((2 * cfg.d_model, cfg.d_model), ("embed", "embed")),
             "norm_h": norm_params(pb, cfg),
             "norm_e": norm_params(pb, cfg),
             "layer": blocks.layer_params(pb, cfg, blocks.layer_spec(cfg, cfg.n_layers - 1)),
@@ -91,6 +92,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
 def param_shapes(cfg: ModelConfig):
     """The parameter tree with :class:`ParamSpec` leaves (no allocation)."""
     return model_params(ParamBuilder("shape", param_dtype=torch_dtype(cfg.param_dtype)), cfg)
+
+
+def param_axes(cfg: ModelConfig):
+    """The parameter tree with logical-axis tuples as leaves."""
+    return model_params(ParamBuilder("axes"), cfg)
 
 
 # --------------------------------------------------------------------------- #
@@ -129,7 +135,7 @@ def _embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> t
     if cfg.pos_embedding == "sinusoid":
         pos = torch.arange(x.shape[1], device=x.device)[None]
         x = x + _sinusoid(pos, cfg.d_model).to(x.dtype)
-    return x
+    return constrain(x, ("batch", "seq", "act_embed"))
 
 
 def _run_encoder(params, cfg: ModelConfig, enc_embeds: torch.Tensor,
@@ -200,7 +206,7 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     x, cache, aux = _run_segments(params, cfg, x, mode=mode, positions=positions,
                                   enc_out=enc_out, attn_impl=attn_impl)
     x = apply_norm(params["norm_f"], x, cfg)
-    logits = lm_logits(params["tok"], x, cfg)
+    logits = constrain(lm_logits(params["tok"], x, cfg), ("batch", "seq", "act_vocab"))
     return logits, cache, aux, x
 
 

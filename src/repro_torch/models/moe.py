@@ -8,12 +8,14 @@ implementations, as in the reference:
   dispatched tensor is laid out ``(groups, experts, capacity, d_model)``.
   Overflow tokens are dropped (capacity factor 1.25 by default), faithful to
   GShard / Switch. The groups are the reference's: one sequence chunk of one
-  batch row, from the same loop (``_n_groups``), with one device since the
-  port has no mesh yet.
-* ``shard_map`` — the reference's expert-parallel dispatch over a mesh
-  (``repro.models.moe_shard_map``). With no mesh the reference falls through
-  to ``scatter``; the port has no mesh until its parallelism slice, so it
-  always does the same.
+  batch row, from the same loop (``_n_groups``), aiming at ~2 groups per
+  device of the active sharding context (one device with none). The
+  reference's four ``constrain`` sites mark the group and expert layouts.
+* ``shard_map`` — the expert-parallel dispatch over the active context's
+  DeviceMesh when it has a ``model`` axis (``moe_shard_map``), as the
+  reference under a mesh. With no context it falls through to ``scatter``,
+  as the reference does with no mesh; so it does under a ``LogicalMesh``
+  (the dry run's), which has no ranks to exchange tokens between.
 * ``dense`` (the reduced configs) — every expert runs on every token,
   weighted by the renormalised top-k gate; exact, no drops, O(E) FLOPs.
 
@@ -31,6 +33,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import active, constrain, is_device_mesh
+
 from .config import ModelConfig
 from .layers import apply_mlp, mlp_params
 from .params import ParamBuilder, torch_dtype
@@ -40,10 +44,10 @@ def moe_params(pb: ParamBuilder, cfg: ModelConfig):
     mo = cfg.moe
     d, ff, e = cfg.d_model, mo.d_ff_expert, mo.n_experts
     p = {
-        "router": pb.param((d, e), scale=0.02),
-        "wi": pb.param((e, d, ff)),
-        "wg": pb.param((e, d, ff)),
-        "wo": pb.param((e, ff, d)),
+        "router": pb.param((d, e), (None, None), scale=0.02),
+        "wi": pb.param((e, d, ff), ("experts", None, "mlp_fsdp")),
+        "wg": pb.param((e, d, ff), ("experts", None, "mlp_fsdp")),
+        "wo": pb.param((e, ff, d), ("experts", "mlp_fsdp", None)),
     }
     if mo.n_shared:
         p["shared"] = mlp_params(pb, cfg, d_ff=mo.n_shared * mo.d_ff_shared)
@@ -62,7 +66,9 @@ def _gate(p, x: torch.Tensor, cfg: ModelConfig):
 def _aux_loss(probs: torch.Tensor, expert_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
     """Switch-style load-balance loss: E * sum_e f_e * p_e."""
     me = probs.reshape(-1, n_experts).mean(dim=0)
-    counts = torch.bincount(expert_idx.reshape(-1), minlength=n_experts).float()
+    # a comparison, not bincount, which has no meta kernel (the dry run)
+    experts = torch.arange(n_experts, device=expert_idx.device)
+    counts = (expert_idx.reshape(-1, 1) == experts).sum(dim=0).float()
     ce = counts / torch.clamp(counts.sum(), min=1.0)
     return n_experts * torch.sum(me * ce)
 
@@ -143,6 +149,15 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, tor
     b, s, d = x.shape
     x = x.to(dt)
 
+    ctx = active()
+    if (mo.impl == "shard_map" and ctx is not None and is_device_mesh(ctx.mesh)
+            and "model" in ctx.shape):
+        from .moe_shard_map import moe_forward_shard_map
+        y, aux = moe_forward_shard_map(p, x, cfg)
+        if mo.n_shared:
+            y = y + apply_mlp(p["shared"], x, cfg)
+        return y, aux
+
     probs, gate_w, expert_idx = _gate(p, x, cfg)
     aux = _aux_loss(probs, expert_idx, mo.n_experts)
 
@@ -153,15 +168,19 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, tor
         mask = F.one_hot(expert_idx, mo.n_experts).float()             # (b, s, k, E)
         w_full = torch.einsum("bske,bsk->bse", mask, gate_w)
         y = torch.einsum("bsed,bse->bsd", out_e, w_full.to(dt))
-    else:   # scatter, and shard_map with no mesh
-        n_chunks = _n_groups(b, s)
+    else:   # scatter, and shard_map with no DeviceMesh
+        n_chunks = _n_groups(b, s, ctx.n_devices if ctx is not None else 1)
         g_len = s // n_chunks
         capacity = capacity_of(g_len, cfg)
+        xg = constrain(x.reshape(b * n_chunks, g_len, d), ("moe_groups", None, None))
         gw = gate_w.reshape(b * n_chunks, g_len, -1)
-        disp, idx = _dispatch(x.reshape(b * n_chunks, g_len, d),
-                              expert_idx.reshape(b * n_chunks, g_len, -1),
+        disp, idx = _dispatch(xg, expert_idx.reshape(b * n_chunks, g_len, -1),
                               mo.n_experts, capacity)
-        y = _combine(_experts_apply(p, disp, cfg), idx, gw).reshape(b, s, d)
+        disp = constrain(disp, ("moe_groups_dp", "moe_experts", None, None))
+        out_slots = constrain(_experts_apply(p, disp, cfg),
+                              ("moe_groups_dp", "moe_experts", None, None))
+        y = constrain(_combine(out_slots, idx, gw), ("moe_groups", None, None))
+        y = y.reshape(b, s, d)
 
     if mo.n_shared:
         y = y + apply_mlp(p["shared"], x, cfg)

@@ -3,11 +3,15 @@
 Model ``init`` functions are written once against a :class:`ParamBuilder`,
 as in ``repro.models.params``, and name each leaf by its key in the returned
 dicts (the reference's ParamBuilder scopes only feed its per-path RNG, which
-the port does not reproduce). A ParamBuilder runs in one of two modes:
+the port does not reproduce). A ParamBuilder runs in one of three modes:
 
 * ``init``  — materialise tensors on the target device from a seeded
   ``torch.Generator``, with the reference's scale rules;
+* ``axes``  — return the same tree of *logical axis* tuples, one name (or
+  ``None``) per dim, which ``repro_torch.parallel.sharding`` maps onto a mesh;
 * ``shape`` — return :class:`ParamSpec` stand-ins (no allocation).
+
+All three trees come from one traversal, so they cannot drift apart.
 
 The reference folds a hash of each path into ``jax.random``; the port does
 not try to reproduce those numbers. To hold the port against the reference,
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+Axes = Tuple[Optional[str], ...]
 
 
 def torch_dtype(name: str | torch.dtype) -> torch.dtype:
@@ -41,6 +46,10 @@ class ParamSpec:
     dtype: torch.dtype
     init: str = "normal"
     scale: float = 1.0
+
+    def meta(self, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """A meta tensor of this shape (in ``dtype``, else the leaf's own)."""
+        return torch.empty(self.shape, dtype=dtype or self.dtype, device="meta")
 
 
 # --------------------------------------------------------------------------- #
@@ -94,12 +103,12 @@ def unflatten(flat: Dict[str, Any]) -> dict:
 # Builder
 # --------------------------------------------------------------------------- #
 class ParamBuilder:
-    """Builds a nested-dict parameter tree in ``init`` or ``shape`` mode."""
+    """Builds a nested-dict parameter tree in ``init``, ``axes`` or ``shape`` mode."""
 
     def __init__(self, mode: str, generator: Optional[torch.Generator] = None,
                  device: torch.device | str = "cpu",
                  param_dtype: torch.dtype = torch.float32):
-        if mode not in ("init", "shape"):
+        if mode not in ("init", "axes", "shape"):
             raise ValueError(f"unknown mode {mode!r}")
         if mode == "init" and generator is None:
             raise ValueError("init mode needs a torch.Generator")
@@ -108,12 +117,17 @@ class ParamBuilder:
         self.device = torch.device(device)
         self.param_dtype = param_dtype
 
-    def param(self, shape: Sequence[int], init: str = "normal",
+    def param(self, shape: Sequence[int], axes: Axes, init: str = "normal",
               scale: float = 1.0, dtype: Optional[torch.dtype] = None):
+        """One leaf of ``shape`` whose dims carry the logical ``axes``."""
         if init not in ("normal", "zeros", "ones", "embed"):
             raise ValueError(f"unknown init {init!r}")
-        spec = ParamSpec(tuple(int(s) for s in shape), dtype or self.param_dtype,
-                         init, scale)
+        shape = tuple(int(s) for s in shape)
+        if len(axes) != len(shape):
+            raise ValueError(f"axes {axes} vs shape {shape}")
+        if self.mode == "axes":
+            return tuple(axes)
+        spec = ParamSpec(shape, dtype or self.param_dtype, init, scale)
         return spec if self.mode == "shape" else self.draw(spec)
 
     def draw(self, spec: ParamSpec) -> torch.Tensor:
@@ -140,6 +154,8 @@ def stacked(pb: ParamBuilder, n: int, fn: Callable[[ParamBuilder], dict]) -> dic
     dtype and filled layer by layer, so no float32 copy of a whole stack
     exists at any time; each layer's leaves keep their own fan-in.
     """
+    if pb.mode == "axes":
+        return tree_map(lambda a: ("layers",) + a, fn(pb))
     mode, pb.mode = pb.mode, "shape"
     try:
         one = fn(pb)

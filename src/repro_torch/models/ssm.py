@@ -42,13 +42,14 @@ def ssm_params(pb: ParamBuilder, cfg: ModelConfig):
     d_in, n_heads, conv_dim = ssm_dims(cfg)
     return {
         # order: [z (d_in), xBC (conv_dim), dt (n_heads)]
-        "w_in": pb.param((d, 2 * d_in + 2 * s.n_groups * s.d_state + n_heads)),
-        "conv_w": pb.param((s.d_conv, conv_dim)),
-        "conv_b": pb.param((conv_dim,), init="zeros"),
-        "A_log": pb.param((n_heads,), init="zeros"),
-        "D": pb.param((n_heads,), init="ones"),
-        "dt_bias": pb.param((n_heads,), init="zeros"),
-        "w_out": pb.param((d_in, d)),
+        "w_in": pb.param((d, 2 * d_in + 2 * s.n_groups * s.d_state + n_heads),
+                         ("embed", "heads")),
+        "conv_w": pb.param((s.d_conv, conv_dim), (None, "heads")),
+        "conv_b": pb.param((conv_dim,), ("heads",), init="zeros"),
+        "A_log": pb.param((n_heads,), (None,), init="zeros"),
+        "D": pb.param((n_heads,), (None,), init="ones"),
+        "dt_bias": pb.param((n_heads,), (None,), init="zeros"),
+        "w_out": pb.param((d_in, d), ("heads", "embed")),
     }
 
 

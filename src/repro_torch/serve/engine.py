@@ -16,6 +16,14 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import torch_dtype, tree_map
 
 
+def serve_param_shapes(cfg: ModelConfig):
+    """The parameter tree as meta tensors, float leaves in the compute dtype
+    (the dry run's; no allocation)."""
+    dt = torch_dtype(cfg.compute_dtype)
+    return tree_map(lambda s: s.meta(dt if s.dtype.is_floating_point else None),
+                    model_mod.param_shapes(cfg))
+
+
 def serve_params_cast(params, cfg: ModelConfig):
     dt = torch_dtype(cfg.compute_dtype)
     return tree_map(lambda p: p.to(dt) if p.is_floating_point() else p, params)

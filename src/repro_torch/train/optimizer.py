@@ -114,6 +114,19 @@ def adam_init(params, cfg: AdamConfig):
             "v": tree_map(lambda p: _moment_init(p, cfg.moment_dtype), params)}
 
 
+def moment_axes(axes_leaf: tuple, dtype: str):
+    """Logical axes for a moment leaf mirroring a param's axes (an int8
+    moment's row scales drop the last axis)."""
+    if dtype == "int8":
+        return {"q": axes_leaf, "s": axes_leaf[:-1]}
+    return axes_leaf
+
+
+def adam_state_axes(param_axes, cfg: AdamConfig):
+    return {"m": tree_map(lambda a: moment_axes(a, cfg.moment_dtype), param_axes),
+            "v": tree_map(lambda a: moment_axes(a, cfg.moment_dtype), param_axes)}
+
+
 def _node(tree, path: str):
     for key in path.split("/"):
         tree = tree[key]

@@ -19,9 +19,10 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import ModelConfig, init_params
+from repro_torch.models import ModelConfig, init_params, param_axes, param_shapes
+from repro_torch.models.params import tree_map
 
-from .optimizer import AdamConfig, adam_init
+from .optimizer import AdamConfig, adam_init, adam_state_axes
 
 
 class TrainState(NamedTuple):
@@ -45,3 +46,19 @@ def init_train_state(cfg: ModelConfig, opt_cfg: AdamConfig, seed: int = 0,
     return TrainState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       rng=init_rng(seed), params=params,
                       opt=adam_init(params, opt_cfg))
+
+
+def train_state_shapes(cfg: ModelConfig, opt_cfg: AdamConfig) -> TrainState:
+    """The state as meta tensors of its shapes and dtypes (the dry run's; no
+    allocation)."""
+    params = tree_map(lambda s: s.meta(), param_shapes(cfg))
+    return TrainState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                      rng=torch.empty((2,), dtype=torch.uint32, device="meta"),
+                      params=params, opt=adam_init(params, opt_cfg))
+
+
+def train_state_axes(cfg: ModelConfig, opt_cfg: AdamConfig) -> TrainState:
+    """Logical-axes tree matching TrainState (for sharding)."""
+    p_axes = param_axes(cfg)
+    return TrainState(step=(), rng=(None,), params=p_axes,
+                      opt=adam_state_axes(p_axes, opt_cfg))

@@ -27,10 +27,12 @@ assert not any(m == "jax" or m.startswith(("jax.", "repro.")) for m in sys.modul
 print(" ".join(names))
 """
 
-#: subpackages whose modules are copies of JAX-free reference modules: the
-#: walk must reach them, and each must import without ``repro``
+#: subpackages whose modules are copies of JAX-free reference modules, or
+#: the parallel layer and launch tooling: the walk must reach them, and each
+#: must import without ``repro``
 SUBPACKAGES = ("repro_torch.core.tee", "repro_torch.tee_stream", "repro_torch.core.tol",
-               "repro_torch.sim", "repro_torch.recovery", "repro_torch.substrate")
+               "repro_torch.sim", "repro_torch.recovery", "repro_torch.substrate",
+               "repro_torch.parallel", "repro_torch.launch")
 
 
 def test_every_module_imports_without_jax_or_repro():

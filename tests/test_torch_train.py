@@ -277,8 +277,10 @@ def test_grad_accum_equivalence():
 
 
 def test_compress_pod_grads_waits_for_the_parallelism_slice():
+    """The compressed step needs a mesh with a pod axis, as the reference's
+    asserts (the step itself: tests/test_torch_parallel.py)."""
     _, pcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="parallelism"):
+    with pytest.raises(ValueError, match="'pod' axis"):
         make_train_step(pcfg, AdamConfig(), TrainConfig(compress_pod_grads=True))
 
 
