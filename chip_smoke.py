@@ -9,7 +9,8 @@ SSD chunked scan) from the sources in this checkout into ``build/``, one nvcc
 per kernel package, and holds each kernel against its plain PyTorch version
 on the card. Flash attention has two kernels, chosen by dtype and head dim
 (``ops.variant``): ``sm90`` on the tensor cores for bf16 at D 64 and 128,
-``simt`` on the CUDA cores for float32 and for bf16 at D 32; each case runs
+``simt`` on the CUDA cores for float32 and for bf16 at D 16 and 32 (16 is
+every reduced config's head dim); each case runs
 the one the table names. Then it drives the port's main paths with seeded
 random weights:
 
@@ -53,6 +54,17 @@ random weights:
   state on a (1,) ``("pod",)`` mesh (the int8 payload all_gathered) against
   the plain step fed the dequantised int8 gradients, bit for bit in
   deterministic mode; the group is destroyed before any phase spawns ranks;
+* the four examples (``examples/torch_*.py``) in-process on the card: the
+  serve demo's reduced llama3, mamba2 and deepseek-v3 (llama3's attention
+  at head dim 16 on ``simt``, mamba2's scan on the ``simt`` SSD kernel,
+  counted), reduced llama3's prefill logits kernel against plain, the
+  quickstart's restore of step 30 (byte for byte) and resume to 40, the
+  anomaly demo's table, and the fault-tolerant example on the modelled
+  cluster, each against what its CPU run gives;
+* the control plane: the 21 scenarios of ``repro_torch.sim.scenarios`` with
+  their TOL burn-ins on the card, each report equal to the same scenario's
+  on the CPU, and a fleet preset, a replay preset and the default sweep,
+  each run twice and equal byte for byte;
 * one training rank, 4 layers (an Adam state of all 32 does not fit one
   card): ``make_train_step`` for 8 timed steps of 4 x 1024 tokens, then a
   TCE checkpoint of the trained params through ``DiskStore`` with the
@@ -102,6 +114,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import importlib.util
 import json
 import math
 import re
@@ -234,8 +247,8 @@ SSD_OLD_HEADS = (4, 8)
 # not causal at S = T = 1,500: ragged q and kv tiles; the decoder's causal
 # self-attention; cross attention, 384 decoder rows against 1,500 encoder
 # rows; 6 heads at D 64: sm90), qwen2-vl-2b's (GQA rep 6 at D 128: sm90),
-# and S != T in float32 (whisper's f32 decode check: simt); the main-path
-# shape last.
+# S != T in float32 (whisper's f32 decode check: simt), and D 16, the
+# reduced configs' head dim (simt in both dtypes: causal GQA and ragged).
 FA_CASES = [
     (2, 128, 128, 4, 2, 64, True, torch.float32),
     (1, 256, 256, 8, 8, 64, True, torch.float32),
@@ -257,6 +270,10 @@ FA_CASES = [
     (FAMILY_REQUESTS, WHISPER_PROMPT_LEN, 1500, 6, 6, 64, False, torch.bfloat16),
     (FAMILY_REQUESTS, QWEN_VL_PROMPT_LEN, QWEN_VL_PROMPT_LEN, 12, 2, 128, True, torch.bfloat16),
     (2, 17, 1500, 6, 6, 64, False, torch.float32),
+    (2, 128, 128, 4, 2, 16, True, torch.float32),
+    (2, 128, 128, 4, 2, 16, True, torch.bfloat16),
+    (1, 200, 200, 4, 4, 16, False, torch.float32),
+    (1, 200, 200, 4, 4, 16, False, torch.bfloat16),
 ]
 MAIN_FA = (REQUESTS, PROMPT_LEN, PROMPT_LEN, 32, 8, 128, True, torch.bfloat16)
 # The simt kernel is timed at the main path's shape in float32 (serving in
@@ -306,6 +323,25 @@ TIE_WANT = [0, 0, 2, -4, 127]                     # round half to even
 TOK_TABLE = (128256, 4096)                        # the largest leaf on the path
 QB_SRC = "src/repro_torch/kernels/quant_blockwise/csrc/quant_blockwise.cu"
 QB_REPLACES = "src/repro/kernels/quant_blockwise/quant_blockwise.py"
+
+# The examples phase: examples/torch_*.py on the card. What their CPU runs
+# give, as tests/test_torch_examples.py pins it: the quickstart's restore
+# source (the memory-first waterfall: every rank's shard from its cache),
+# the anomaly demo's table (the reference demo's, line for line), and the
+# fault-tolerant example's sim run (two kills, two spares claimed).
+QUICKSTART_SOURCES = {"cache": 4, "backup": 0, "store": 0, "store_full": 0}
+ANOMALY_TABLE = [
+    "category     detected  votes                                  bad ranks (true)",
+    "storage      True      lof,nprofile,log                       (6,) ((4,))",
+    "network      True      lof,nprofile,cluster                   (4,) ((4,))",
+    "node_hw      True      lof,nprofile,cluster                   (3,) ((3,))",
+    "user_code    True      log                                    (0,) ((0,))",
+    "other        True      lof,nprofile                           () ((7,))",
+]
+FT_SIM = {"completed": True, "steps_done": 24, "restarts": {"inplace": 0, "resched": 2},
+          "by_decision": {"claim_spare": 2}}
+# The control-plane phase: the presets run twice each, byte for byte.
+CP_FLEET, CP_REPLAY, CP_SWEEP = "two_jobs_rack_outage", "table1_64_week", "default"
 
 
 T0 = time.perf_counter()   # the script's start: each phase line's t_s counts from it
@@ -2579,6 +2615,160 @@ def _check_loop_int8(inst, report, launches, codec_calls, losses):
             "replayed_loss_rel_tol": RESTORE_LOSS_REL_TOL}
 
 
+def load_example(name: str):
+    """``examples/torch_<name>.py`` as a module, for its ``main(argv)``."""
+    path = ROOT / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(kernels, engine, fa_ref):
+    """The four examples of ``examples/torch_*.py`` on the card, in-process
+    through their ``main(argv)``:
+
+    * the serve demo, one ``main([arch])`` per reduced arch, its launches
+      counted by variant against ``layer_counts``: llama3's prefill attention
+      at head dim 16 on ``simt`` (2 layers), mamba2's scan on the ``simt`` SSD
+      kernel (p 16, n 16, chunk 32 are no sm90 shape; 2 layers), deepseek-v3's
+      MLA on no kernel; then reduced llama's prefill logits, kernel against
+      plain, and the D-16 kernel timed at that prefill's attention shape;
+    * the quickstart: step 30 restored from the source its CPU run reports,
+      the restored leaves equal to the saved ones byte for byte (the raw
+      codec), finite losses on to step 40;
+    * the anomaly demo's table, the CPU's;
+    * the fault-tolerant example on ``--substrate sim``, its TOL burn-ins on
+      the card: the CPU run's restarts and decisions, and loss continuity.
+
+    The example's process mode is not run here: ``phase_capstone`` drives the
+    same loop with CUDA ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import init_params
+
+    fa_ops = kernels["fa"]
+    dev = torch.device("cuda")
+    demo = load_example("serve_demo")
+    serve = {}
+    for arch in demo.ARCHS:
+        cfg = get_config(arch).reduced()
+        reset_counts(kernels)
+        res = demo.main([arch, "--device", "cuda"])[arch]
+        by_variant = {k: dict(ops.LAUNCHES_BY_VARIANT) for k, ops in kernels.items()}
+        toks = torch.tensor(res["tokens"])
+        check(tuple(toks.shape) == (demo.BATCH, demo.STEPS), f"{arch}: tokens {tuple(toks.shape)}")
+        check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), f"{arch}: token out of range")
+        counts = layer_counts(cfg)
+        want = {k: {"sm90": 0, "simt": counts[k]} for k in kernels}
+        check(by_variant == want, f"{arch}: launches {by_variant}, want {want}")
+        serve[arch] = {"launches_by_variant": by_variant, "seconds": res["seconds"],
+                       "sample": res["tokens"][0][:8]}
+    check([serve[a]["launches_by_variant"]["fa"]["simt"] for a in demo.ARCHS] == [2, 0, 0]
+          and [serve[a]["launches_by_variant"]["ssd"]["simt"] for a in demo.ARCHS] == [0, 2, 0],
+          f"serve demo launches {serve}")
+
+    cfg = get_config("llama3-8b").reduced()
+    params = engine.serve_params_cast(init_params(cfg, seed=0, device=dev), cfg)
+    batch = {"tokens": make_prompts(cfg, demo.BATCH, demo.PROMPT, 1, dev)}
+    with torch.inference_mode():
+        got, _ = engine.prefill_fn(params, cfg, batch)
+        plain, _ = engine.prefill_fn(params, cfg, batch, attn_impl="plain")
+    diff = float((got.float() - plain.float()).abs().max())
+    scale = float(plain.float().abs().max())
+    check(diff <= LOGITS_REL_TOL * scale,
+          f"reduced llama prefill logits kernel vs plain: {diff} > {LOGITS_REL_TOL} x {scale}")
+    case = (demo.BATCH, demo.PROMPT, demo.PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+            True, torch.bfloat16)
+    q, k, v = fa_inputs(case, seed=11)
+    check(fa_ops.variant(q.dtype, cfg.d_head) == "simt", "D 16 is not on simt")
+    err = float((fa_ops.flash_attention(q, k, v).float()
+                 - fa_ref.attention_reference(q, k, v).float()).abs().max())
+    check(err <= TOL[torch.bfloat16], f"D 16 kernel vs plain: {err}")
+    bound_s, bound_by, _, _ = fa_bound(case)
+    d16 = {"shape": list(case[:6]), "dtype": "bfloat16", "causal": True,
+           "ms": time_ms(lambda: fa_ops.flash_attention(q, k, v)),
+           "plain_ms": time_ms(lambda: fa_ref.attention_reference(q, k, v)),
+           "library_ms": time_ms(sdpa_call(q, k, v, True)),
+           "bound_ms": bound_s * 1e3, "bound_by": bound_by, "max_abs_err": err}
+    del q, k, v, params
+
+    qs = load_example("quickstart").main(["--device", "cuda"])
+    check(qs["restored_step"] == 30 and qs["restore_sources"] == QUICKSTART_SOURCES,
+          f"quickstart restored step {qs['restored_step']} from {qs['restore_sources']}")
+    check(qs["restored_bit_exact"], "quickstart: restored leaves differ from the saved ones")
+    check(qs["resumed_step"] == 40 and qs["resumed_finite"],
+          f"quickstart resumed to {qs['resumed_step']}, losses {qs['resumed_losses']}")
+
+    an = load_example("anomaly_detection_demo").main(["--device", "cuda"])
+    check(an["table"] == ANOMALY_TABLE, f"anomaly table {an['table']}")
+
+    ft = load_example("fault_tolerant_training").main(["--substrate", "sim",
+                                                       "--device", "cuda"])
+    rep = ft["report"]
+    got_ft = {"completed": rep["completed"], "steps_done": rep["steps_done"],
+              "restarts": rep["restarts"], "by_decision": rep["decisions"]["by_decision"]}
+    check(got_ft == FT_SIM and ft["continuity"], f"fault-tolerant sim run {got_ft}, "
+          f"continuity {ft['continuity']}, want {FT_SIM}")
+    out = {"phase": "examples", "serve_demo": serve,
+           "llama_prefill": {"logits_max_abs_diff": diff, "logits_scale": scale,
+                             "logits_rel_tol": LOGITS_REL_TOL},
+           "fa_simt_d16": d16,
+           "quickstart": {k: qs[k] for k in ("n_params", "save_losses", "restored_step",
+                                             "restore_sources", "restored_bit_exact",
+                                             "resumed_step", "resumed_losses")},
+           "anomaly_table_equal": True,
+           "fault_tolerant_sim": {**got_ft, "continuity": ft["continuity"],
+                                  "lost_steps": rep["lost_steps"],
+                                  "final_loss": rep["final_loss"]}}
+    emit(out)
+    return out
+
+
+def phase_control_plane():
+    """The scenario catalog, fleet, replay and sweep of ``repro_torch`` under
+    this machine's Python and numpy: each of the 21 scenarios on
+    ``device="cuda"`` (the closed-loop ones run their TOL burn-ins on the
+    card) equal to its ``device="cpu"`` run in this script, the volatile
+    ``measured`` block dropped (no report field names the device, so no
+    other field is dropped); then one fleet preset, one replay preset and
+    the sweep's default grid, each run twice and equal byte for byte (they
+    touch no device)."""
+    from repro_torch.fleet.presets import run_preset
+    from repro_torch.report import strip_volatile
+    from repro_torch.sim import scenarios
+    from repro_torch.sim.replay import run_replay
+    from repro_torch.sim.sweep import run_sweep
+
+    t0 = time.perf_counter()
+    names = sorted(scenarios.SCENARIOS)
+    check(len(names) == 21, f"{len(names)} scenarios, want 21")
+    digests, secs = {}, {}
+    for name in names:
+        t = time.perf_counter()
+        card = scenarios.run_scenario(name, seed=0, device="cuda")
+        secs[name] = round(time.perf_counter() - t, 3)
+        host = scenarios.run_scenario(name, seed=0, device="cpu")
+        check(json.dumps(strip_volatile(card), sort_keys=True)
+              == json.dumps(strip_volatile(host), sort_keys=True),
+              f"scenario {name}: card report != cpu report")
+        check(card.get("one_clock", True) is not False, f"scenario {name}: one_clock false")
+        digests[name] = card["timeline_digest"]
+    twice = {}
+    for what, run in ((f"fleet:{CP_FLEET}", lambda: run_preset(CP_FLEET, seed=0)),
+                      (f"replay:{CP_REPLAY}", lambda: run_replay(CP_REPLAY, seed=0)),
+                      (f"sweep:{CP_SWEEP}", lambda: run_sweep(CP_SWEEP, seed=0))):
+        a, b = run(), run()
+        check(json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True),
+              f"{what}: two runs differ")
+        twice[what] = a["timeline_digest"]
+    out = {"phase": "control_plane", "scenarios": len(names), "digests": digests,
+           "card_run_s": secs, "twice_equal": twice,
+           "seconds": round(time.perf_counter() - t0, 2)}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2623,6 +2813,9 @@ def main() -> int:
                                              "decode_ms_per_step", "peak_mem_gb")}
         for arch in ("whisper-tiny", "qwen2-vl-2b")}})
     torch.cuda.empty_cache()
+    examples = phase_examples(kernels, engine, fa_ref)
+    phase_control_plane()
+    torch.cuda.empty_cache()
     quant = phase_quant_kernel(qb_ops, qb_ref)
     torch.cuda.empty_cache()
     cfg, state, data, step_fn, train = phase_train(fa_ops)
@@ -2649,7 +2842,9 @@ def main() -> int:
             ("flash_attention_fwd_simt", "simt", "flash_attention.cu",
              {"decode_check_llama": simt_launches,
               "decode_check_whisper": families["decode_simt_whisper-tiny"],
-              "decode_check_qwen2_vl": families["decode_simt_qwen2-vl-2b"]})):
+              "decode_check_qwen2_vl": families["decode_simt_qwen2-vl-2b"],
+              "examples_serve_llama":
+                  examples["serve_demo"]["llama3-8b"]["launches_by_variant"]["fa"]["simt"]})):
         t = timing[kind]
         entries.append({
             "name": name, "route": "cuda", "source": FA_SRC + src, "replaces": FA_REPLACES,
@@ -2657,7 +2852,13 @@ def main() -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "roofline_share": t["roofline_share"],
-            "dtype": t["dtype"]})
+            "dtype": t["dtype"],
+            # the head dims each dtype takes on this kernel, and its times at
+            # the serve demo's D-16 prefill shape
+            "head_dims": {str(dt).split(".")[1]: [d for d in fa_ops.SUPPORTED_D
+                                                  if fa_ops.variant(dt, d) == kind]
+                          for dt in fa_ops._DTYPE_CODE},
+            **({"d16": examples["fa_simt_d16"]} if kind == "simt" else {})})
     for name, line, key, count in (("quantize_blockwise", 18, "quantize", "quant_launches"),
                                    ("dequantize_blockwise", 29, "dequantize", "dequant_launches")):
         t = quant[key]
@@ -2676,7 +2877,9 @@ def main() -> int:
     ssd_paths = {
         "sm90": {"serve_mamba2": ssd_launches["ssd"],
                  "serve_jamba": families["jamba-v0.1-52b"]["launches"]["ssd"]},
-        "simt": {"decode_check_jamba": families["decode_simt"], "f32_checks_mamba2": ssd_checks}}
+        "simt": {"decode_check_jamba": families["decode_simt"], "f32_checks_mamba2": ssd_checks,
+                 "examples_serve_mamba2":
+                     examples["serve_demo"]["mamba2-130m"]["launches_by_variant"]["ssd"]["simt"]}}
     # sm90 at mamba2's shape with jamba's beside it; simt at mamba2's in
     # float32 (its checks' dtype) with jamba's bf16 shape beside it
     for name, kind, src, key, other in (

@@ -1,7 +1,7 @@
 // Flash-attention forward for NVIDIA Hopper (sm_90a) on the CUDA cores, plain
-// C interface: the "simt" variant, for float32 at head dims 32, 64, 128 and
-// bf16 at D 32. bf16 at D 64 and 128 goes to the tensor-core kernel in
-// flash_attention_sm90.cu; fa_fwd below holds the two apart.
+// C interface: the "simt" variant, for float32 at head dims 16, 32, 64, 128
+// and bf16 at D 16 and 32. bf16 at D 64 and 128 goes to the tensor-core
+// kernel in flash_attention_sm90.cu; fa_fwd below holds the two apart.
 //
 // Replaces: the Pallas TPU kernel `_fa_kernel`, launched by
 // `flash_attention_bhsd` (src/repro/kernels/flash_attention/flash_attention.py),
@@ -286,10 +286,12 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
   return launch<TYPE, DIM>(q, k, v, o, B, S, T, H, KH, sqb, sqs, sqh, skb, sks, skh, \
                            svb, svs, svh, sob, sos, soh, causal, st)
   if (dtype == 0) {
+    if (D == 16) FA_LAUNCH(float, 16);
     if (D == 32) FA_LAUNCH(float, 32);
     if (D == 64) FA_LAUNCH(float, 64);
     if (D == 128) FA_LAUNCH(float, 128);
   } else if (dtype == 1) {
+    if (D == 16) FA_LAUNCH(__nv_bfloat16, 16);
     if (D == 32) FA_LAUNCH(__nv_bfloat16, 32);
   }
 #undef FA_LAUNCH

@@ -9,8 +9,8 @@ fixed by dtype and head dim (:func:`variant`), never by a failure:
 
 * ``"sm90"``: bf16 at D 64 and 128, on the tensor cores (wgmma fed by TMA),
   ``csrc/flash_attention_sm90.cu``; the serving path;
-* ``"simt"``: float32 at D 32, 64, 128 and bf16 at D 32, float32 products on
-  the CUDA cores, ``csrc/flash_attention.cu``.
+* ``"simt"``: float32 at D 16, 32, 64, 128 and bf16 at D 16 and 32, float32
+  products on the CUDA cores, ``csrc/flash_attention.cu``.
 
 Both read the (B, S, H, D) strides directly, so there is no transpose copy
 around them.
@@ -33,7 +33,7 @@ _PLAIN_DEVICES = ("cpu", "meta")
 LAUNCHES = 0
 LAUNCHES_BY_VARIANT = {"sm90": 0, "simt": 0}
 
-SUPPORTED_D = (32, 64, 128)
+SUPPORTED_D = (16, 32, 64, 128)
 SM90_D = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANT_CODE = {"simt": 0, "sm90": 1}

@@ -1,15 +1,24 @@
-"""The port's copy of the shared simulation kernel (``repro.sim`` is the
-reference): one clock, one topology, one fault model for the control plane.
+"""Shared simulation substrate for the TRANSOM closed loop.
+
+One clock, one topology, one fault model: TOL (orchestration), TEE (anomaly
+detection) and TCE (checkpointing) all observe the same ``SimClock``, the same
+``Topology`` (nodes, spares, failure domains) and the same ``FaultEvent``
+taxonomy, so a scenario can never have the subsystems disagree about time,
+node health, or what failed.
 
 Layering (no cycles):
 
     sim.clock      <- nothing
     sim.faults     <- clock
     sim.topology   <- clock, faults
+    sim.soak       <- clock, faults, topology (time-triggered soak engine)
+    sim.sweep      <- soak, topology (policy sweep harness)
+    sim.scenarios  <- everything (builds the full TEE->TOL->TCE stack)
+    sim.replay     <- everything (empirical-mix replay over the fleet engine)
 
-The three modules are copies of the reference's, imports aside. The soak
-engine, the policy sweep, the scenario catalog and the trace replay that the
-reference's package also holds wait for a later slice of the port.
+``core.tce`` / ``core.tol`` / ``core.tee`` import the kernel, never the other
+way around (``sim.scenarios`` is the one top-layer exception: it drives the
+core subsystems).
 """
 from .clock import EventQueue, SimClock
 from .faults import (FAULT_CATEGORIES, MIXES, SIGNATURES, FailureMix,
@@ -17,6 +26,8 @@ from .faults import (FAULT_CATEGORIES, MIXES, SIGNATURES, FailureMix,
                      correlated_domain_failure, domain_outage_schedule,
                      get_mix, group_domain_incidents, merge_schedules,
                      push_schedule)
+from .soak import SoakConfig, SoakPolicy, manual_policy, run_soak, \
+    transom_policy
 from .topology import Node, NodeState, Topology, nodes_for_fault_rate
 
 __all__ = [
@@ -25,5 +36,7 @@ __all__ = [
     "FaultInjector", "cascade_events", "correlated_domain_failure",
     "domain_outage_schedule", "get_mix", "group_domain_incidents",
     "merge_schedules", "push_schedule",
+    "SoakConfig", "SoakPolicy", "manual_policy", "run_soak",
+    "transom_policy",
     "Node", "NodeState", "Topology", "nodes_for_fault_rate",
 ]

@@ -2,10 +2,11 @@
 (simulation kernel, recovery planner, report and CLI conventions, the TOL
 FSM, lease server, cluster view, fleet simulation and closed-loop operator,
 the TEE and the streaming TEE, the Substrate protocol, the recovery driver,
-the modelled-cluster substrate, and the checkpoint engine's arena, cache,
-fabric and theory model) are the reference's source with the import prefix
-rewritten, and the TOL checks that run on a device (burn-in, collective)
-hold on the CPU.
+the modelled-cluster substrate, the checkpoint engine's arena, cache, fabric
+and theory model, the soak engine, the policy sweep, the trace replay, the
+scenario catalog and the multi-job fleet engine) are the reference's source
+with the import prefix rewritten, and the TOL checks that run on a device
+(burn-in, collective) hold on the CPU.
 """
 import difflib
 import re
@@ -131,6 +132,113 @@ COPIES = {
         ("        checks = error_check_tasks(sub.topology, bad_ranks, rank_to_node)",),
         ("        checks = error_check_tasks(sub.topology, bad_ranks, rank_to_node, "
          "device=sub.device)",)),
+    # the soak engine, the fleet control plane and the trace replay: numpy on
+    # modelled clocks, no device
+    "sim/soak.py": ((), ()),
+    "fleet/view.py": ((), ()),
+    "fleet/scheduler.py": ((), ()),
+    "fleet/engine.py": ((), ()),
+    "fleet/presets.py": ((), ()),
+    "fleet/__init__.py": ((), ()),
+    "sim/__init__.py": ((), ()),
+    # the CLIs name the port's module in their usage line
+    "fleet/__main__.py": (
+        ('        argv, prog="python -m repro.fleet",',),
+        ('        argv, prog="python -m repro_torch.fleet",',)),
+    "sim/sweep.py": (
+        ('        prog="python -m repro.sim.sweep",',
+         '            prog="python -m repro.sim.sweep", what="sweep grids",',
+         '            hint="python -m repro.sim.sweep --grid <name>")',),
+        ('        prog="python -m repro_torch.sim.sweep",',
+         '            prog="python -m repro_torch.sim.sweep", what="sweep grids",',
+         '            hint="python -m repro_torch.sim.sweep --grid <name>")',)),
+    "sim/replay.py": (
+        ('        argv, prog="python -m repro.sim.replay",',),
+        ('        argv, prog="python -m repro_torch.sim.replay",',)),
+    # one departure, an explicit device: every scenario takes it and hands it
+    # to each substrate it builds (the fleet presets it registers ignore it),
+    # run_scenario and the CLI's --device pass it down; the usage line names
+    # the port's module; the docstring names the departure
+    "sim/scenarios.py": (
+        ('    run: Callable[[int], dict]     # seed -> JSON-able report',
+         'def _single_node_crash(seed: int = 0) -> dict:',
+         '    sub = build_substrate(n_nodes=4, n_spares=2)',
+         'def _straggler(seed: int = 0) -> dict:',
+         '    sub = build_substrate(n_nodes=4, n_spares=2)',
+         'def _flapping_link(seed: int = 0) -> dict:',
+         '    sub = build_substrate(n_nodes=4, n_spares=2)',
+         'def _correlated_switch_failure(seed: int = 0) -> dict:',
+         '    sub = build_substrate(n_nodes=4, n_spares=4, nodes_per_rack=2)',
+         'def _storage_stall(seed: int = 0) -> dict:',
+         '    sub = build_substrate(n_nodes=4, n_spares=2)',
+         'def _cascading_double_fault(seed: int = 0) -> dict:',
+         '    sub = build_substrate(n_nodes=4, n_spares=4)',
+         'def _elastic_shrink_then_grow(seed: int = 0) -> dict:',
+         '    sub = build_substrate(n_nodes=4, n_spares=0)',
+         'def _weekend_closed_loop_pair() -> Tuple[dict, dict]:',
+         '    sub_auto = build_substrate(n_nodes=4, n_spares=2)',
+         '    sub_man = build_substrate(n_nodes=4, n_spares=2, with_tee=False)',
+         'def _weekend_manual_baseline(seed: int = 0) -> dict:',
+         '    auto, man = _weekend_closed_loop_pair()',
+         'def _save_racing_crash(seed: int = 0) -> dict:',
+         '    sub = build_substrate(n_nodes=4, n_spares=2)',
+         'def _weeklong_soak(seed: int = 0) -> dict:',
+         'def _tiered_outage(seed: int = 0) -> dict:',
+         'def _policy_frontier(seed: int = 0) -> dict:',
+         '        SCENARIOS[p.name] = Scenario(p.name, f"[fleet] {p.description}",',
+         '                                     p.run)',
+         'def run_scenario(name: str, seed: int = 0) -> dict:',
+         '    return finalize(SCENARIOS[name].run(seed), scenario=name, seed=seed)',
+         '        argv, prog="python -m repro.sim.scenarios",',
+         '        run=run_scenario, what="scenarios")',),
+        ('',
+         "Counterpart of ``repro.sim.scenarios``: the reference's source with the",
+         'import prefix rewritten and one departure, an explicit device. Every',
+         'scenario takes ``device=None`` and hands it to each substrate it builds',
+         '(``build_sim_substrate`` resolves it: the card unless ``"cpu"`` is asked',
+         "for), whose TOL burn-ins are the modelled cluster's only device work.",
+         "``run_scenario(name, seed, device)`` and the CLI's ``--device`` pass it",
+         'down; the soak, sweep and fleet presets touch no device and ignore it.',
+         '    run: Callable[..., dict]       # (seed, device) -> JSON-able report',
+         'def _single_node_crash(seed: int = 0, device=None) -> dict:',
+         '    sub = build_substrate(n_nodes=4, n_spares=2, device=device)',
+         'def _straggler(seed: int = 0, device=None) -> dict:',
+         '    sub = build_substrate(n_nodes=4, n_spares=2, device=device)',
+         'def _flapping_link(seed: int = 0, device=None) -> dict:',
+         '    sub = build_substrate(n_nodes=4, n_spares=2, device=device)',
+         'def _correlated_switch_failure(seed: int = 0, device=None) -> dict:',
+         '    sub = build_substrate(n_nodes=4, n_spares=4, nodes_per_rack=2,',
+         '                          device=device)',
+         'def _storage_stall(seed: int = 0, device=None) -> dict:',
+         '    sub = build_substrate(n_nodes=4, n_spares=2, device=device)',
+         'def _cascading_double_fault(seed: int = 0, device=None) -> dict:',
+         '    sub = build_substrate(n_nodes=4, n_spares=4, device=device)',
+         'def _elastic_shrink_then_grow(seed: int = 0, device=None) -> dict:',
+         '    sub = build_substrate(n_nodes=4, n_spares=0, device=device)',
+         'def _weekend_closed_loop_pair(device=None) -> Tuple[dict, dict]:',
+         '    sub_auto = build_substrate(n_nodes=4, n_spares=2, device=device)',
+         '    sub_man = build_substrate(n_nodes=4, n_spares=2, with_tee=False,',
+         '                              device=device)',
+         'def _weekend_manual_baseline(seed: int = 0, device=None) -> dict:',
+         '    auto, man = _weekend_closed_loop_pair(device)',
+         'def _save_racing_crash(seed: int = 0, device=None) -> dict:',
+         '    sub = build_substrate(n_nodes=4, n_spares=2, device=device)',
+         'def _weeklong_soak(seed: int = 0, device=None) -> dict:',
+         'def _tiered_outage(seed: int = 0, device=None) -> dict:',
+         'def _policy_frontier(seed: int = 0, device=None) -> dict:',
+         '        SCENARIOS[p.name] = Scenario(',
+         '            p.name, f"[fleet] {p.description}",',
+         '            lambda seed, device=None, run=p.run: run(seed))',
+         'def run_scenario(name: str, seed: int = 0, device=None) -> dict:',
+         '    return finalize(SCENARIOS[name].run(seed, device=device), scenario=name,',
+         '                    seed=seed)',
+         '        argv, prog="python -m repro_torch.sim.scenarios",',
+         '        run=run_scenario, what="scenarios",',
+         '        add_args=lambda ap: ap.add_argument(',
+         '            "--device", choices=("cuda", "cpu"), default="cuda",',
+         '            help="where the TOL burn-ins run (default cuda)"),',
+         '        run_kwargs=lambda args: {"device": args.device})',)),
+
 }
 
 

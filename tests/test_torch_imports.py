@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``)
-imports ``jax`` or anything of the JAX package ``repro``."""
+"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``,
+nor an example of the port, ``examples/torch_*.py``) imports ``jax`` or
+anything of the JAX package ``repro``."""
 import os
 import re
 import subprocess
@@ -32,7 +33,7 @@ print(" ".join(names))
 #: must import without ``repro``
 SUBPACKAGES = ("repro_torch.core.tee", "repro_torch.tee_stream", "repro_torch.core.tol",
                "repro_torch.sim", "repro_torch.recovery", "repro_torch.substrate",
-               "repro_torch.parallel", "repro_torch.launch")
+               "repro_torch.parallel", "repro_torch.launch", "repro_torch.fleet")
 
 
 def test_every_module_imports_without_jax_or_repro():
@@ -48,8 +49,24 @@ def test_every_module_imports_without_jax_or_repro():
         assert want <= set(names), sorted(want - set(names))
 
 
+EXAMPLES = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "examples").glob("torch_*.py"))
+
+
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
-                         + ["chip_smoke.py"])
+                         + ["chip_smoke.py"] + EXAMPLES)
 def test_source_has_no_jax_or_repro_import(path):
     src = (ROOT / path).read_text()
     assert not FORBIDDEN.search(src), FORBIDDEN.search(src).group(0)
+
+
+def test_examples_import_without_jax_or_repro():
+    assert len(EXAMPLES) == 4
+    code = ("import importlib.util, sys\n"
+            "sys.modules['jax'] = None\nsys.modules['repro'] = None\n"
+            "for path in sys.argv[1:]:\n"
+            "    spec = importlib.util.spec_from_file_location('ex', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code, *(str(ROOT / p) for p in EXAMPLES)],
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

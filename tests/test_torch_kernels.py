@@ -24,7 +24,12 @@ FA_CASES = [
     (1, 128, 128, 2, 2, 64, True, "bfloat16", 64, 64),
     (1, 64, 64, 4, 4, 32, False, "bfloat16", 32, 32),
 ]
-CASE_IDS = [f"s{c[1]}h{c[3]}kh{c[4]}d{c[5]}c{int(c[6])}{c[7]}" for c in FA_CASES]
+# head dim 16, which every reduced config has: causal GQA, f32 and bf16
+D16_CASES = [
+    (2, 128, 128, 4, 2, 16, True, "float32", 64, 64),
+    (2, 128, 128, 4, 2, 16, True, "bfloat16", 64, 64),
+]
+CASE_IDS = [f"s{c[1]}h{c[3]}kh{c[4]}d{c[5]}c{int(c[6])}{c[7]}" for c in FA_CASES + D16_CASES]
 
 # f32: both sides compute in float32, in another summation order.
 # bf16: the oracles round the normalised softmax weights to bf16 before P.V,
@@ -57,7 +62,7 @@ def test_fa_cases_are_the_reference_cases():
     assert [c[:7] + (c[7].__name__,) + c[8:] for c in JAX_CASES] == FA_CASES
 
 
-@pytest.mark.parametrize("case", FA_CASES, ids=CASE_IDS)
+@pytest.mark.parametrize("case", FA_CASES + D16_CASES, ids=CASE_IDS)
 def test_torch_reference_vs_jax(case):
     jax = pytest.importorskip("jax")
     import jax.numpy as jnp
@@ -112,6 +117,7 @@ def test_wrapper_rejects_bad_inputs(bad):
 # The kernel each (dtype, head dim) takes on the card: the tensor-core kernel
 # for bf16 at D 64 and 128, the CUDA-core kernel for the rest.
 VARIANT_TABLE = [
+    ("float32", 16, "simt"), ("bfloat16", 16, "simt"),
     ("float32", 32, "simt"), ("float32", 64, "simt"), ("float32", 128, "simt"),
     ("bfloat16", 32, "simt"), ("bfloat16", 64, "sm90"), ("bfloat16", 128, "sm90"),
 ]
@@ -190,8 +196,9 @@ def cuda_device():
 # (not causal, S = T = 1500: a last q tile of 92 rows, its second consumer
 # holding 28, and a last kv tile of 92 columns), decoder self-attention and
 # cross attention (S = 384 decoder rows against T = 1500 encoder rows), and
-# qwen2-vl-2b's GQA at rep 6; and S != T in float32 (the simt kernel: the
-# cross attention of whisper's float32 decode check).
+# qwen2-vl-2b's GQA at rep 6; S != T in float32 (the simt kernel: the
+# cross attention of whisper's float32 decode check); and D 16 (the reduced
+# configs' head dim) causal GQA and ragged, in both dtypes.
 CARD_CASES = [c[:8] for c in FA_CASES] + [
     (2, 200, 200, 8, 2, 128, True, "bfloat16"),
     (1, 77, 77, 4, 4, 64, False, "float32"),
@@ -206,6 +213,9 @@ CARD_CASES = [c[:8] for c in FA_CASES] + [
     (8, 384, 1500, 6, 6, 64, False, "bfloat16"),
     (8, 2048, 2048, 12, 2, 128, True, "bfloat16"),
     (2, 17, 1500, 6, 6, 64, False, "float32"),
+] + [c[:8] for c in D16_CASES] + [
+    (1, 200, 200, 4, 4, 16, False, "float32"),
+    (1, 200, 200, 4, 4, 16, False, "bfloat16"),
 ]
 
 
@@ -228,7 +238,7 @@ def test_cuda_kernel_vs_plain(case, cuda_device):
 
 
 def test_cuda_kernel_rejects_unsupported_head_dim(cuda_device):
-    q = torch.zeros(1, 8, 2, 16, device=cuda_device)
-    k = v = torch.zeros(1, 8, 2, 16, device=cuda_device)
+    q = torch.zeros(1, 8, 2, 8, device=cuda_device)
+    k = v = torch.zeros(1, 8, 2, 8, device=cuda_device)
     with pytest.raises(ValueError, match="head dims"):
         ops.flash_attention(q, k, v)
