@@ -7,17 +7,18 @@ Needs one CUDA card (Hopper: the kernels are built for sm_90a). It builds the
 port's kernels (flash attention, blockwise int8 quantise / dequantise, the
 SSD chunked scan) from the sources in this checkout into ``build/``, one nvcc
 per kernel package, and holds each kernel against its plain PyTorch version
-on the card. Flash attention has two kernels, chosen by dtype and head dim
-(``ops.variant``): ``sm90`` on the tensor cores for bf16 at D 64 and 128,
-``simt`` on the CUDA cores for float32 and for bf16 at D 16 and 32 (16 is
-every reduced config's head dim); each case runs
-the one the table names. Then it drives the port's main paths with seeded
+on the card. Flash attention has three kernels, chosen by dtype and head
+dim (``ops.variant``): ``sm90`` on the tensor cores for bf16 at D 64 and
+128, ``tf32x3`` on the tensor cores for float32 at every head dim (three
+TF32 products a product), ``simt`` on the CUDA cores for bf16 at D 16 and
+32 (16 is every reduced config's head dim); each case runs the one the
+table names. Then it drives the port's main paths with seeded
 random weights:
 
 * serving llama3-8b, full width and depth, bf16
   (``repro_torch.launch.serve``): prefill through the ``sm90``
   flash-attention kernel (every launch of the wave), then decode; decode
-  against forward in float32 through the ``simt`` kernel;
+  against forward in float32 through the ``tf32x3`` kernel;
 * serving mamba2-130m, full width and depth, bf16, 8 x 4096 + 32: prefill
   through the SSD-scan kernel (one launch per layer, every one on the
   ``sm90`` kernel: three passes on the tensor cores), then the recurrent
@@ -44,7 +45,7 @@ random weights:
   generated (28 ``sm90`` launches at GQA rep 6), with one more prefill at
   Qwen2-VL's own M-RoPE positions for a 32 x 32 patch grid, kernel against
   plain and against the default positions; decode against forward in
-  float32 for whisper whole and qwen2-vl at 2 layers, on ``simt``;
+  float32 for whisper whole and qwen2-vl at 2 layers, on ``tf32x3``;
 * the parallel layer on a 1-rank NCCL group: olmoe-1b-7b's prefill, on the
   weights of its family wave, under a (1, 1) ``("data", "model")`` mesh,
   every MoE layer through the shard_map MoE (``all_to_all``, ``all_gather``
@@ -138,13 +139,16 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.launch.mesh import H100_HBM_BYTES_S as PEAK_BYTES_S  # noqa: E402
 from repro_torch.launch.mesh import H100_PEAK_BF16_FLOPS as PEAK_BF16_FLOPS  # noqa: E402
 from repro_torch.launch.mesh import H100_PEAK_F32_FLOPS as PEAK_F32_FLOPS  # noqa: E402
+from repro_torch.launch.mesh import H100_PEAK_TF32_FLOPS as PEAK_TF32_FLOPS  # noqa: E402
 
 # The main path: llama3-8b serving, one wave of 8 requests x 1024-token
 # prompts, 32 generated tokens.
 ARCH, REQUESTS, PROMPT_LEN, GEN, SEED = "llama3-8b", 8, 1024, 32, 0
 
 # Kernel vs plain tolerances. f32: the same arithmetic in another summation
-# order. bf16: the plain version rounds the normalised softmax weights to
+# order (flash attention's tf32x3 kernel also leaves out the lo * lo term of
+# its hi / lo split, below 2^-20 relative; the SSD scan is float32
+# throughout). bf16: the plain version rounds the normalised softmax weights to
 # bf16 before P.V, the sm90 kernel the unnormalised ones, the simt kernel
 # none (the reference tests' bf16 tolerance).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2.5e-2}
@@ -243,12 +247,13 @@ SSD_OLD_HEADS = (4, 8)
 # an empty second consumer in the last tile, GQA rep 4 at D 64, D 128
 # without the mask), olmoe-1b-7b's attention layers in its serve wave (16
 # heads, no GQA grouping, D 128: sm90), the f32 decode check's two shapes
-# (simt), whisper-tiny's three attentions in its serve wave (the encoder,
+# (tf32x3), whisper-tiny's three attentions in its serve wave (the encoder,
 # not causal at S = T = 1,500: ragged q and kv tiles; the decoder's causal
 # self-attention; cross attention, 384 decoder rows against 1,500 encoder
 # rows; 6 heads at D 64: sm90), qwen2-vl-2b's (GQA rep 6 at D 128: sm90),
-# S != T in float32 (whisper's f32 decode check: simt), and D 16, the
-# reduced configs' head dim (simt in both dtypes: causal GQA and ragged).
+# S != T in float32 (whisper's f32 decode check: tf32x3), and D 16, the
+# reduced configs' head dim (causal GQA and ragged: tf32x3 in float32, simt
+# in bf16). Every float32 case runs on tf32x3.
 FA_CASES = [
     (2, 128, 128, 4, 2, 64, True, torch.float32),
     (1, 256, 256, 8, 8, 64, True, torch.float32),
@@ -276,7 +281,7 @@ FA_CASES = [
     (1, 200, 200, 4, 4, 16, False, torch.bfloat16),
 ]
 MAIN_FA = (REQUESTS, PROMPT_LEN, PROMPT_LEN, 32, 8, 128, True, torch.bfloat16)
-# The simt kernel is timed at the main path's shape in float32 (serving in
+# The tf32x3 kernel is timed at the main path's shape in float32 (serving in
 # float32 takes it at any head dim).
 MAIN_FA_F32 = MAIN_FA[:7] + (torch.float32,)
 # The sm90 kernel against SDPA beside the main shape: without the mask, and
@@ -286,6 +291,10 @@ MAIN_FA_F32 = MAIN_FA[:7] + (torch.float32,)
 FA_RATE_CASES = [MAIN_FA[:6] + (False, torch.bfloat16),
                  (2, 4096, 4096, 32, 8, 128, True, torch.bfloat16),
                  (2, 4096, 4096, 32, 8, 128, False, torch.bfloat16)]
+# The tf32x3 kernel against SDPA in float32 at 4x the sequence, causal and
+# not.
+FA_RATE_CASES_F32 = [(2, 4096, 4096, 32, 8, 128, True, torch.float32),
+                     (2, 4096, 4096, 32, 8, 128, False, torch.float32)]
 FA_SRC = "src/repro_torch/kernels/flash_attention/csrc/"
 FA_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:25"
 
@@ -395,13 +404,16 @@ def fa_inputs(case, seed):
 
 def fa_bound(case):
     """Least time (s) for the work: operations this run's mask keeps, and
-    bytes of q, k, v read once and o written once."""
+    bytes of q, k, v read once and o written once. bf16 products run on the
+    tensor cores at the bf16 peak; float32 ones on the tf32x3 kernel, as
+    three TF32 products each at the TF32 peak. ``flops`` is the function's
+    own count (one product each)."""
     b, s, t, h, kh, d, causal, dt = case
     pairs = sum(min(i + 1, t) for i in range(s)) if causal else s * t
     flops = 2 * 2 * b * h * d * pairs
     nbytes = (2 * b * s * h * d + 2 * b * t * kh * d) * torch.tensor([], dtype=dt).element_size()
-    peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_S
+    t_ops = flops / PEAK_BF16_FLOPS if dt == torch.bfloat16 else 3 * flops / PEAK_TF32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_S
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
 
 
@@ -510,18 +522,19 @@ def sdpa_call(q, k, v, causal):
 
 def phase_kernel(fa_ops, fa_ref):
     """Every case on the kernel the variant table names, against the plain
-    version; then each kernel's times at its main shape (sm90: MAIN_FA,
-    simt: MAIN_FA_F32)."""
+    version; then each tensor-core kernel's times at its main shape (sm90:
+    MAIN_FA, tf32x3: MAIN_FA_F32; simt's are the examples phase's, at the
+    D-16 shape it serves)."""
     rows = []
     for i, case in enumerate(FA_CASES + [MAIN_FA, MAIN_FA_F32]):
         b, s, t, h, kh, d, causal, dt = case
         kind = fa_ops.variant(dt, d)
         q, k, v = fa_inputs(case, seed=100 + i)
-        fa_ops.LAUNCHES_BY_VARIANT.update(sm90=0, simt=0)
+        fa_ops.LAUNCHES_BY_VARIANT.update({name: 0 for name in fa_ops.LAUNCHES_BY_VARIANT})
         got = fa_ops.flash_attention(q, k, v, causal=causal)
         launched = dict(fa_ops.LAUNCHES_BY_VARIANT)
         torch.cuda.synchronize()
-        check(launched == {"sm90": int(kind == "sm90"), "simt": int(kind == "simt")},
+        check(launched == {name: int(name == kind) for name in launched},
               f"{case} launched {launched}, want one {kind}")
         want = fa_ref.attention_reference(q, k, v, causal=causal)
         check(got.dtype == dt and got.shape == q.shape, f"bad output {got.dtype} {tuple(got.shape)}")
@@ -553,19 +566,23 @@ def phase_kernel(fa_ops, fa_ref):
             "max_abs_err": row["max_abs_err"]}
         emit(timings[kind])
 
-    rates = []
-    for i, case in enumerate(FA_RATE_CASES):
-        causal = case[6]
-        q, k, v = fa_inputs(case, seed=300 + i)
-        kernel_ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=causal))
-        library_ms = time_ms(sdpa_call(q, k, v, causal))
-        del q, k, v
-        flops = fa_bound(case)[2]
-        rates.append({"shape": list(case[:6]), "causal": causal, "kernel_ms": kernel_ms,
-                      "library_ms": library_ms, "kernel_tflops": flops / kernel_ms / 1e9,
-                      "library_tflops": flops / library_ms / 1e9})
-    emit({"phase": "kernel_rates", "variant": "sm90", "dtype": "bfloat16",
-          "library": "scaled_dot_product_attention (GQA expanded)", "cases": rates})
+    for kind, cases, seed in (("sm90", FA_RATE_CASES, 300), ("tf32x3", FA_RATE_CASES_F32, 310)):
+        rates = []
+        for i, case in enumerate(cases):
+            causal = case[6]
+            check(fa_ops.variant(case[7], case[5]) == kind, f"{case} is not on {kind}")
+            q, k, v = fa_inputs(case, seed=seed + i)
+            kernel_ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=causal))
+            library_ms = time_ms(sdpa_call(q, k, v, causal))
+            del q, k, v
+            bound_s, _, flops, _ = fa_bound(case)
+            rates.append({"shape": list(case[:6]), "causal": causal, "kernel_ms": kernel_ms,
+                          "library_ms": library_ms, "bound_ms": bound_s * 1e3,
+                          "kernel_tflops": flops / kernel_ms / 1e9,
+                          "library_tflops": flops / library_ms / 1e9})
+        emit({"phase": "kernel_rates", "variant": kind,
+              "dtype": str(cases[0][7]).split(".")[1],
+              "library": "scaled_dot_product_attention (GQA expanded)", "cases": rates})
     return timings
 
 
@@ -916,7 +933,7 @@ def phase_mrope_grid_check(engine, kernels, params, batch, cfg):
            "vs_default_positions_max_abs_diff": float((got - default).abs().max()),
            "argmax_agree": float((got.argmax(-1) == plain.argmax(-1)).float().mean())}
     emit(out)
-    want = {"sm90": cfg.n_layers, "simt": 0}
+    want = {v: cfg.n_layers if v == "sm90" else 0 for v in launches["fa"]}
     check(launches["fa"] == want, f"grid prefill launched {launches['fa']}, want {want}")
     check(out["logits_max_abs_diff"] <= LOGITS_REL_TOL * scale,
           f"grid-position prefill kernel vs plain: {out['logits_max_abs_diff']} > "
@@ -981,8 +998,8 @@ def phase_families(kernels, serve_cli, engine, model_mod, mesh):
                                              "jamba-v0.1-52b", variant="simt", kind="ssd")
     freed("decode_check_jamba")
     for arch, layers in (("whisper-tiny", None), ("qwen2-vl-2b", 2)):
-        runs[f"decode_simt_{arch}"] = phase_decode_check(engine, model_mod, kernels["fa"], arch,
-                                                         variant="simt", layers=layers)
+        runs[f"decode_f32_{arch}"] = phase_decode_check(engine, model_mod, kernels["fa"], arch,
+                                                        variant="tf32x3", layers=layers)
         freed(f"decode_check_{arch}")
     emit({"phase": "families_memory", "base_gb": base / 1e9, "after": memory,
           "seconds": seconds})
@@ -2660,7 +2677,8 @@ def phase_examples(kernels, engine, fa_ref):
         check(tuple(toks.shape) == (demo.BATCH, demo.STEPS), f"{arch}: tokens {tuple(toks.shape)}")
         check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), f"{arch}: token out of range")
         counts = layer_counts(cfg)
-        want = {k: {"sm90": 0, "simt": counts[k]} for k in kernels}
+        want = {k: {v: counts[k] if v == "simt" else 0 for v in ops.LAUNCHES_BY_VARIANT}
+                for k, ops in kernels.items()}
         check(by_variant == want, f"{arch}: launches {by_variant}, want {want}")
         serve[arch] = {"launches_by_variant": by_variant, "seconds": res["seconds"],
                        "sample": res["tokens"][0][:8]}
@@ -2794,7 +2812,7 @@ def main() -> int:
     launches, _, _ = phase_serve(kernels, serve_cli, engine, get_config(ARCH), REQUESTS,
                                  PROMPT_LEN, GEN, {"fa": "sm90"})
     torch.cuda.empty_cache()
-    simt_launches = phase_decode_check(engine, model_mod, fa_ops, ARCH, variant="simt")
+    f32_launches = phase_decode_check(engine, model_mod, fa_ops, ARCH, variant="tf32x3")
     torch.cuda.empty_cache()
     ssd_timing = phase_ssd_kernel(ssd_ops, ssd_ref)
     torch.cuda.empty_cache()
@@ -2836,15 +2854,27 @@ def main() -> int:
                 "serve_jamba": families["jamba-v0.1-52b"]["launches"]["fa"],
                 "serve_whisper": families["whisper-tiny"]["launches"]["fa"],
                 "serve_qwen2_vl": families["qwen2-vl-2b"]["launches"]["fa"]}
+    # tf32x3: every float32 attention on the card, the decode checks' forward
+    # and prefill (llama3-8b and qwen2-vl-2b at 2 layers, whisper-tiny's 4
+    # encoder, 4 decoder and 4 cross attentions); simt: the serve demo's
+    # reduced llama3 prefill, bf16 at D 16, timed at that shape
+    f32_paths = {"decode_check_llama": f32_launches,
+                 "decode_check_whisper": families["decode_f32_whisper-tiny"],
+                 "decode_check_qwen2_vl": families["decode_f32_qwen2-vl-2b"]}
+    check(list(f32_paths.values()) == [4, 24, 4], f"float32 decode-check launches {f32_paths}")
+    simt_paths = {"examples_serve_llama":
+                  examples["serve_demo"]["llama3-8b"]["launches_by_variant"]["fa"]["simt"]}
+    d16 = examples["fa_simt_d16"]
+    timing["simt"] = {"kernel_ms": d16["ms"], "plain_ms": d16["plain_ms"],
+                      "library_ms": d16["library_ms"], "bound_ms": d16["bound_ms"],
+                      "bound_by": d16["bound_by"], "roofline_share": d16["bound_ms"] / d16["ms"],
+                      "dtype": d16["dtype"], "max_abs_err": d16["max_abs_err"],
+                      "shape": d16["shape"]}
     entries = []
     for name, kind, src, by_path in (
             ("flash_attention_fwd", "sm90", "flash_attention_sm90.cu", fa_paths),
-            ("flash_attention_fwd_simt", "simt", "flash_attention.cu",
-             {"decode_check_llama": simt_launches,
-              "decode_check_whisper": families["decode_simt_whisper-tiny"],
-              "decode_check_qwen2_vl": families["decode_simt_qwen2-vl-2b"],
-              "examples_serve_llama":
-                  examples["serve_demo"]["llama3-8b"]["launches_by_variant"]["fa"]["simt"]})):
+            ("flash_attention_fwd_tf32x3", "tf32x3", "flash_attention_f32_sm90.cu", f32_paths),
+            ("flash_attention_fwd_simt", "simt", "flash_attention.cu", simt_paths)):
         t = timing[kind]
         entries.append({
             "name": name, "route": "cuda", "source": FA_SRC + src, "replaces": FA_REPLACES,
@@ -2852,13 +2882,11 @@ def main() -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "roofline_share": t["roofline_share"],
-            "dtype": t["dtype"],
-            # the head dims each dtype takes on this kernel, and its times at
-            # the serve demo's D-16 prefill shape
+            "dtype": t["dtype"], "shape": t["shape"],
+            # the head dims each dtype takes on this kernel
             "head_dims": {str(dt).split(".")[1]: [d for d in fa_ops.SUPPORTED_D
                                                   if fa_ops.variant(dt, d) == kind]
-                          for dt in fa_ops._DTYPE_CODE},
-            **({"d16": examples["fa_simt_d16"]} if kind == "simt" else {})})
+                          for dt in fa_ops._DTYPE_CODE}})
     for name, line, key, count in (("quantize_blockwise", 18, "quantize", "quant_launches"),
                                    ("dequantize_blockwise", 29, "dequantize", "dequant_launches")):
         t = quant[key]
@@ -2897,6 +2925,8 @@ def main() -> int:
                                               "bound_ms", "bound_by", "max_abs_err",
                                               "passes", "heads_per_block", "views")
                             if k in o}})
+    idle = [e["name"] for e in entries if not e["launches"]]
+    check(not idle, f"kernels never launched on their paths: {idle}")
     emit({"kernels": entries})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 1)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tensor loads,
 // named barriers, register reallocation, wgmma descriptors and products, and
 // on the host the encoding of TMA tensor maps. Shared by the port's Hopper
-// kernels (flash_attention_sm90.cu, ssd_scan_sm90.cu), which include it
+// kernels (flash_attention_sm90.cu, flash_attention_f32_sm90.cu,
+// ssd_scan_sm90.cu), which include it
 // through the -I of kernels/_build.py. Every device function here is a thin
 // wrapper around one or two PTX instructions; see the PTX ISA sections on
 // mbarrier, cp.async.bulk(.tensor), fence.proxy, wgmma.mma_async and
@@ -281,21 +282,29 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 4-D map over a bf16 tensor: dims innermost first (the innermost with
-// unit stride), byte strides of the outer three, boxes of box[0..3] with the
-// given swizzle: 128-byte (box[0] is 64, one 128-byte row) or 32-byte
-// (box[0] is 16, one 32-byte row). Returns false if cuTensorMapEncodeTiled
-// refuses it (a stride or address that is not a multiple of 16).
-inline bool make_map_bf16(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[4],
-                          const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4],
-                          CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+// A 4-D map over a tensor of `type`: dims innermost first (the innermost
+// with unit stride), byte strides of the outer three, boxes of box[0..3]
+// with the given swizzle, whose row (box[0] elements) must not be longer
+// than the swizzle span: 128 bytes (64 bf16, 32 float32), 64 or 32. Returns
+// false if cuTensorMapEncodeTiled refuses it (a stride or address that is
+// not a multiple of 16).
+inline bool make_map_4d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                        const cuuint64_t (&dims)[4], const cuuint64_t (&strides)[3],
+                        const cuuint32_t (&box)[4], CUtensorMapSwizzle swizzle) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
+  return encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The same over a bf16 tensor: 128-byte swizzle (box[0] is 64, one
+// 128-byte row) or 32-byte (box[0] is 16, one 32-byte row).
+inline bool make_map_bf16(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[4],
+                          const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4],
+                          CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  return make_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, dims, strides, box, swizzle);
 }
 
 }  // namespace repro_sm90

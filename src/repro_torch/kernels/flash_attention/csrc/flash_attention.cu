@@ -1,7 +1,9 @@
 // Flash-attention forward for NVIDIA Hopper (sm_90a) on the CUDA cores, plain
-// C interface: the "simt" variant, for float32 at head dims 16, 32, 64, 128
-// and bf16 at D 16 and 32. bf16 at D 64 and 128 goes to the tensor-core
-// kernel in flash_attention_sm90.cu; fa_fwd below holds the two apart.
+// C interface: the "simt" variant, for bf16 at head dims 16 and 32, the
+// reduced configs' widths. bf16 at D 64 and 128 goes to the tensor-core
+// kernel in flash_attention_sm90.cu, float32 at every head dim to the TF32
+// tensor-core kernel in flash_attention_f32_sm90.cu; fa_fwd below holds the
+// three apart.
 //
 // Replaces: the Pallas TPU kernel `_fa_kernel`, launched by
 // `flash_attention_bhsd` (src/repro/kernels/flash_attention/flash_attention.py),
@@ -9,20 +11,20 @@
 // the same function: blocked online-softmax attention with GQA (kv head =
 // h / (H / KH)), scale 1/sqrt(D), causal mask q_idx >= k_idx (top-left
 // aligned) to NEG_INF = -1e30, float32 running max, sum and accumulator,
-// denominator clamped at 1e-20, output in the input dtype.
+// denominator clamped at 1e-20, output in bf16.
 //
-// Bound on an H100 SXM for float32 at the serving shape (B=8, H=32, KH=8,
-// S=T=1024, D=128, causal): 68.8 GFLOP of the two products on the causal
-// half; float32 has no tensor-core path here, so at the 67 TFLOP/s of the
-// CUDA cores that is ~1.0 ms; 336 MB of q, k, v, o at 3.35 TB/s is ~0.1 ms.
-// So it is bound by operations.
+// Bound on an H100 SXM at the shape it serves (the serve demo's reduced
+// llama3-8b prefill: B=4, S=T=32, H=4, KH=2, D=16, causal, bf16): 49 KB of
+// q, k, v, o is 1.5e-5 ms at 3.35 TB/s, and its 0.54 MFLOP take less at any
+// peak, so it is bound by bytes. But the work is 16 blocks of a few
+// microseconds, and a launch and its wrapper cost more than all of it (0.04
+// ms measured on an H100). No design inside the kernel moves that; fewer
+// launches would.
 //
-// What this design does about that bound: it is the simple, correct first
-// version. Both products run as float32 FMAs on the CUDA cores, from
-// register micro-tiles over float32 tiles in shared memory. Causal blocks
-// stop at the diagonal tile, which halves the work as the bound assumes, and
-// the heaviest q tiles are scheduled first. K/V tiles are read once per q
-// tile (from L2 for the most part); bytes are not the limit.
+// What this design does: it is simple. Both products run as float32 FMAs
+// on the CUDA cores, from register micro-tiles over float32 tiles in shared
+// memory. Causal blocks stop at the diagonal tile and the heaviest q tiles
+// are scheduled first.
 //
 // Layout: one thread block per (q tile of 64 rows, head, batch), 128
 // threads. A loop over 64-row kv tiles takes the place of the TPU grid's
@@ -53,14 +55,8 @@ constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 static_assert(BQ == BK, "load_tile stages 64-row tiles for both q and kv");
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+// The only element type: float32 runs on flash_attention_f32_sm90.cu.
+using bf16 = __nv_bfloat16;
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -70,10 +66,10 @@ constexpr size_t smem_bytes() {
 // Stage a 64 x D tile into shared memory as float32 times `mul`. Row r of
 // the tile starts at base + r * row_stride; rows >= n_valid are zero.
 // Loads are 16-byte vectors (the wrapper checks alignment).
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* base,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const bf16* base,
                                           long long row_stride, int n_valid, float mul) {
-  constexpr int EPV = 16 / sizeof(T);   // elements per vector
+  constexpr int EPV = 16 / sizeof(bf16);   // elements per vector
   constexpr int VPR = D / EPV;          // vectors per row
   for (int idx = threadIdx.x; idx < BK * VPR; idx += THREADS) {
     const int r = idx / VPR;
@@ -81,9 +77,9 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* base,
     float vals[EPV];
     if (r < n_valid) {
       const uint4 raw = *reinterpret_cast<const uint4*>(base + r * row_stride + c);
-      const T* e = reinterpret_cast<const T*>(&raw);
+      const bf16* e = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
-      for (int i = 0; i < EPV; ++i) vals[i] = to_f32(e[i]) * mul;
+      for (int i = 0; i < EPV; ++i) vals[i] = __bfloat162float(e[i]) * mul;
     } else {
 #pragma unroll
       for (int i = 0; i < EPV; ++i) vals[i] = 0.0f;
@@ -93,10 +89,10 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* base,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o,
+fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, bf16* __restrict__ o,
               int S, int T_, int H, int KH,
               long long sqb, long long sqs, long long sqh,
               long long skb, long long sks, long long skh,
@@ -120,12 +116,12 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r0 = (tid / GROUP) * ROWS;
   const int c8 = tid % GROUP;
 
-  const T* qb = q + b * sqb + h * sqh + q0 * sqs;
-  const T* kb = k + b * skb + kvh * skh;
-  const T* vb = v + b * svb + kvh * svh;
+  const bf16* qb = q + b * sqb + h * sqh + q0 * sqs;
+  const bf16* kb = k + b * skb + kvh * skh;
+  const bf16* vb = v + b * svb + kvh * svh;
 
   // Scores are kept in log2 units: q is pre-scaled by log2(e)/sqrt(D).
-  load_tile<T, D>(Qs, LDQ, qb, sqs, min(BQ, S - q0), qk_scale_log2);
+  load_tile<D>(Qs, LDQ, qb, sqs, min(BQ, S - q0), qk_scale_log2);
 
   float m[ROWS], l[ROWS], acc[ROWS][OCOLS];
 #pragma unroll
@@ -143,8 +139,8 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = j * BK;
     const int kv_valid = min(BK, T_ - k0);
     __syncthreads();   // the previous tile's Ks, Vs, Ps are no longer read
-    load_tile<T, D>(Ks, LDK, kb + k0 * sks, sks, kv_valid, 1.0f);
-    load_tile<T, D>(Vs, LDV, vb + k0 * svs, svs, kv_valid, 1.0f);
+    load_tile<D>(Ks, LDK, kb + k0 * sks, sks, kv_valid, 1.0f);
+    load_tile<D>(Vs, LDV, vb + k0 * svs, svs, kv_valid, 1.0f);
     __syncthreads();
 
     // S = Q K^T on a ROWS x SCOLS register micro-tile.
@@ -219,14 +215,14 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + r0 + a;
     if (qi < S) {
       const float inv = 1.0f / fmaxf(l[a], 1e-20f);
-      T* orow = o + b * sob + h * soh + qi * sos;
+      bf16* orow = o + b * sob + h * soh + qi * sos;
 #pragma unroll
-      for (int c = 0; c < OCOLS; ++c) orow[c8 + GROUP * c] = from_f32<T>(acc[a][c] * inv);
+      for (int c = 0; c < OCOLS; ++c) orow[c8 + GROUP * c] = __float2bfloat16(acc[a][c] * inv);
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int T_, int H, int KH,
                    long long sqb, long long sqs, long long sqh,
@@ -235,15 +231,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    long long sob, long long sos, long long soh,
                    int causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(fa_fwd_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(fa_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   const float qk_scale_log2 = LOG2E / sqrtf(static_cast<float>(D));
-  fa_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, T_, H, KH, sqb, sqs, sqh, skb, sks, skh, svb, svs, svh,
+  fa_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), S, T_, H, KH, sqb, sqs, sqh, skb, sks, skh, svb, svs, svh,
       sob, sos, soh, qk_scale_log2, causal);
   return cudaGetLastError();
 }
@@ -261,10 +257,22 @@ extern "C" int fa_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                            long long sob, long long sos, long long soh,
                            int causal, void* stream);
 
+// flash_attention_f32_sm90.cu: float32, D 16, 32, 64 and 128, on the tensor
+// cores in three TF32 products.
+extern "C" int fa_fwd_tf32x3(const void* q, const void* k, const void* v, void* o,
+                             int B, int S, int T, int H, int KH, int D,
+                             long long sqb, long long sqs, long long sqh,
+                             long long skb, long long sks, long long skh,
+                             long long svb, long long svs, long long svh,
+                             long long sob, long long sos, long long soh,
+                             int causal, void* stream);
+
 // dtype: 0 = float32, 1 = bfloat16. variant: 0 = "simt" (this file), 1 =
-// "sm90" (tensor cores), and it must be the one the wrapper's table names:
-// sm90 for bf16 at D 64 and 128, simt otherwise. Strides are in elements,
-// for the (B, S, H, D) layout (the D stride must be 1). Returns a cudaError_t.
+// "sm90" (bf16 tensor cores), 2 = "tf32x3" (float32 tensor cores), and it
+// must be the one the wrapper's table names: tf32x3 for float32, sm90 for
+// bf16 at D 64 and 128, simt for bf16 at D 16 and 32. Strides are in
+// elements, for the (B, S, H, D) layout (the D stride must be 1). Returns a
+// cudaError_t.
 extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
                       int dtype, int variant, int device,
                       int B, int S, int T, int H, int KH, int D,
@@ -274,26 +282,23 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
                       long long sob, long long sos, long long soh,
                       int causal, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || KH <= 0 || H % KH != 0) return cudaErrorInvalidValue;
-  const bool tensor_cores = dtype == 1 && (D == 64 || D == 128);
-  if (variant != (tensor_cores ? 1 : 0)) return cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  const int want = dtype == 0 ? 2 : (D == 64 || D == 128) ? 1 : 0;
+  if (variant != want) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (tensor_cores)
+  if (want == 2)
+    return fa_fwd_tf32x3(q, k, v, o, B, S, T, H, KH, D, sqb, sqs, sqh, skb, sks, skh,
+                         svb, svs, svh, sob, sos, soh, causal, stream);
+  if (want == 1)
     return fa_fwd_sm90(q, k, v, o, B, S, T, H, KH, D, sqb, sqs, sqh, skb, sks, skh,
                        svb, svs, svh, sob, sos, soh, causal, stream);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FA_LAUNCH(TYPE, DIM)                                                          \
-  return launch<TYPE, DIM>(q, k, v, o, B, S, T, H, KH, sqb, sqs, sqh, skb, sks, skh, \
-                           svb, svs, svh, sob, sos, soh, causal, st)
-  if (dtype == 0) {
-    if (D == 16) FA_LAUNCH(float, 16);
-    if (D == 32) FA_LAUNCH(float, 32);
-    if (D == 64) FA_LAUNCH(float, 64);
-    if (D == 128) FA_LAUNCH(float, 128);
-  } else if (dtype == 1) {
-    if (D == 16) FA_LAUNCH(__nv_bfloat16, 16);
-    if (D == 32) FA_LAUNCH(__nv_bfloat16, 32);
-  }
+#define FA_LAUNCH(DIM)                                                                      \
+  return launch<DIM>(q, k, v, o, B, S, T, H, KH, sqb, sqs, sqh, skb, sks, skh, svb, svs, svh, \
+                     sob, sos, soh, causal, st)
+  if (D == 16) FA_LAUNCH(16);
+  if (D == 32) FA_LAUNCH(32);
 #undef FA_LAUNCH
   return cudaErrorInvalidValue;
 }

@@ -59,10 +59,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "fa_tiles.cuh"
 #include "hopper.cuh"
 
 namespace repro_fa_sm90 {
 
+using namespace repro_fa_tiles;
 using namespace repro_sm90;
 
 constexpr int BM = 128;          // q rows per block (two consumers of 64)
@@ -85,12 +87,6 @@ struct Smem {
   static constexpr int BYTES = BARS + 8 * (2 + 4 * STAGES);
   static constexpr int ALLOC = BYTES + 1024;                // slack to align to 1024
 };
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[32]) {
 #pragma unroll
@@ -195,28 +191,6 @@ __device__ __forceinline__ void rescale(float (&acc_o)[N], float corr_a, float c
   for (int i = 0; i < N; ++i) acc_o[i] *= (i & 2) ? corr_b : corr_a;
 }
 
-// The work of one q tile: rows q0 .. q0 + 127 of head h, batch b.
-struct Tile {
-  int q0, h, b, kvh, n_kv;
-};
-
-// Tile t of the persistent walk over n_qt q tiles x H heads x B batches:
-// the heaviest causal q tiles first (the last q tile of every head and
-// batch, then the one before, ...), heads of one kv head side by side so
-// that their k, v tiles are read from L2 together.
-__device__ __forceinline__ Tile tile_at(int t, int n_qt, int S, int T, int H, int KH, int B,
-                                        int causal) {
-  Tile w;
-  const int hb = H * B;
-  w.q0 = (n_qt - 1 - t / hb) * BM;
-  w.h = (t % hb) % H;
-  w.b = (t % hb) / H;
-  w.kvh = w.h / (H / KH);
-  w.n_kv = (T + BN - 1) / BN;
-  if (causal) w.n_kv = min(w.n_kv, (min(w.q0 + BM, S) - 1) / BN + 1);   // stop at the diagonal
-  return w;
-}
-
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 fa_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -269,7 +243,7 @@ fa_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       int it = 0;   // kv tiles loaded so far, over all of this block's q tiles
       int qi = 0;   // q tiles loaded so far
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++qi) {
-        const Tile w = tile_at(t, n_qt, S, T, H, KH, B, causal);
+        const Tile w = tile_at<BM, BN>(t, n_qt, S, T, H, KH, B, causal);
         mbar_wait(empty_q, (qi & 1) ^ 1);   // the first wait passes at once
         mbar_arrive_expect_tx(full_q, L::TILE);
 #pragma unroll
@@ -318,7 +292,7 @@ fa_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     int it = 0, qi = 0;
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++qi) {
-      const Tile w = tile_at(t, n_qt, S, T, H, KH, B, causal);
+      const Tile w = tile_at<BM, BN>(t, n_qt, S, T, H, KH, B, causal);
       const bool last_tile = t + static_cast<int>(gridDim.x) >= n_tiles;
       Rows r;
       r.lo = w.q0 + 64 * cw;

@@ -9,11 +9,14 @@ fixed by dtype and head dim (:func:`variant`), never by a failure:
 
 * ``"sm90"``: bf16 at D 64 and 128, on the tensor cores (wgmma fed by TMA),
   ``csrc/flash_attention_sm90.cu``; the serving path;
-* ``"simt"``: float32 at D 16, 32, 64, 128 and bf16 at D 16 and 32, float32
-  products on the CUDA cores, ``csrc/flash_attention.cu``.
+* ``"tf32x3"``: float32 at D 16, 32, 64 and 128, on the tensor cores
+  (mma.sync fed by TMA), each product as three TF32 products of a hi / lo
+  split, which keeps float32's accuracy, ``csrc/flash_attention_f32_sm90.cu``;
+* ``"simt"``: bf16 at D 16 and 32 (the reduced configs), float32 products on
+  the CUDA cores, ``csrc/flash_attention.cu``.
 
-Both read the (B, S, H, D) strides directly, so there is no transpose copy
-around them.
+All three read the (B, S, H, D) strides directly, so there is no transpose
+copy around them.
 
 ``LAUNCHES`` counts kernel launches (never the CPU path), so that a run can
 show that its main path went through the kernel; ``LAUNCHES_BY_VARIANT``
@@ -31,12 +34,12 @@ from .ref import attention_reference
 # the plain version's devices: the CPU, and meta tensors (shapes only)
 _PLAIN_DEVICES = ("cpu", "meta")
 LAUNCHES = 0
-LAUNCHES_BY_VARIANT = {"sm90": 0, "simt": 0}
+LAUNCHES_BY_VARIANT = {"sm90": 0, "tf32x3": 0, "simt": 0}
 
 SUPPORTED_D = (16, 32, 64, 128)
 SM90_D = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_VARIANT_CODE = {"simt": 0, "sm90": 1}
+_VARIANT_CODE = {"simt": 0, "sm90": 1, "tf32x3": 2}
 _C = ctypes.c_int
 _L = ctypes.c_longlong
 _P = ctypes.c_void_p
@@ -73,7 +76,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def variant(dtype: torch.dtype, d: int) -> str:
     """The kernel that takes (dtype, head dim) on the card."""
-    return "sm90" if dtype == torch.bfloat16 and d in SM90_D else "simt"
+    if dtype == torch.float32:
+        return "tf32x3"
+    return "sm90" if d in SM90_D else "simt"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

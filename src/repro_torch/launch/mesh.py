@@ -17,6 +17,7 @@ import torch.distributed as dist
 from repro_torch.parallel.sharding import LogicalMesh
 
 H100_PEAK_BF16_FLOPS = 989e12       # per card, bf16 tensor cores
+H100_PEAK_TF32_FLOPS = 495e12       # per card, TF32 tensor cores
 H100_PEAK_F32_FLOPS = 67e12         # per card, float32 outside the tensor cores
 H100_HBM_BYTES_S = 3.35e12          # HBM3 bytes/s per card
 H100_HBM_BYTES = 80e9               # the data sheet's 80 GB

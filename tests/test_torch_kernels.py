@@ -114,11 +114,12 @@ def test_wrapper_rejects_bad_inputs(bad):
         ops.flash_attention(q, k, v)
 
 
-# The kernel each (dtype, head dim) takes on the card: the tensor-core kernel
-# for bf16 at D 64 and 128, the CUDA-core kernel for the rest.
+# The kernel each (dtype, head dim) takes on the card: the TF32 tensor-core
+# kernel for float32 at every head dim, the bf16 tensor-core kernel for bf16
+# at D 64 and 128, the CUDA-core kernel for bf16 at D 16 and 32.
 VARIANT_TABLE = [
-    ("float32", 16, "simt"), ("bfloat16", 16, "simt"),
-    ("float32", 32, "simt"), ("float32", 64, "simt"), ("float32", 128, "simt"),
+    ("float32", 16, "tf32x3"), ("bfloat16", 16, "simt"),
+    ("float32", 32, "tf32x3"), ("float32", 64, "tf32x3"), ("float32", 128, "tf32x3"),
     ("bfloat16", 32, "simt"), ("bfloat16", 64, "sm90"), ("bfloat16", 128, "sm90"),
 ]
 
@@ -131,7 +132,7 @@ def test_variant_table(name, d, want):
 def test_variant_table_covers_every_supported_input():
     assert sorted((n, d) for n, d, _ in VARIANT_TABLE) == sorted(
         (str(t).split(".")[1], d) for t in ops._DTYPE_CODE for d in ops.SUPPORTED_D)
-    assert set(ops.LAUNCHES_BY_VARIANT) == {"sm90", "simt"} == set(ops._VARIANT_CODE)
+    assert set(ops.LAUNCHES_BY_VARIANT) == {"sm90", "tf32x3", "simt"} == set(ops._VARIANT_CODE)
 
 
 def test_cpu_wrapper_counts_no_variant_launch():
@@ -143,8 +144,11 @@ def test_cpu_wrapper_counts_no_variant_launch():
 
 def test_build_names_libraries_by_source_and_needs_nvcc():
     srcs = _build.sources("flash_attention")
-    assert [p.name for p in srcs] == ["flash_attention.cu", "flash_attention_sm90.cu"]
-    assert _build.headers("flash_attention") == [_build.shared_include() / "hopper.cuh"]
+    assert [p.name for p in srcs] == ["flash_attention.cu", "flash_attention_f32_sm90.cu",
+                                      "flash_attention_sm90.cu"]
+    assert _build.headers("flash_attention") == [
+        _build.shared_include() / "hopper.cuh",
+        _build.KERNELS_DIR / "flash_attention" / "csrc" / "fa_tiles.cuh"]
     lib = _build.library_path("flash_attention")
     assert lib.parent == _build.BUILD_DIR and lib == _build.library_path("flash_attention")
     try:
@@ -196,9 +200,10 @@ def cuda_device():
 # (not causal, S = T = 1500: a last q tile of 92 rows, its second consumer
 # holding 28, and a last kv tile of 92 columns), decoder self-attention and
 # cross attention (S = 384 decoder rows against T = 1500 encoder rows), and
-# qwen2-vl-2b's GQA at rep 6; S != T in float32 (the simt kernel: the
+# qwen2-vl-2b's GQA at rep 6; S != T in float32 (the tf32x3 kernel: the
 # cross attention of whisper's float32 decode check); and D 16 (the reduced
-# configs' head dim) causal GQA and ragged, in both dtypes.
+# configs' head dim) causal GQA and ragged, in both dtypes. Every float32
+# case runs the tf32x3 kernel.
 CARD_CASES = [c[:8] for c in FA_CASES] + [
     (2, 200, 200, 8, 2, 128, True, "bfloat16"),
     (1, 77, 77, 4, 4, 64, False, "float32"),
@@ -222,7 +227,8 @@ CARD_CASES = [c[:8] for c in FA_CASES] + [
 @pytest.mark.parametrize("case", CARD_CASES, ids=str)
 def test_cuda_kernel_vs_plain(case, cuda_device):
     b, s, t, h, kh, d, causal, name = case
-    # On the card, f32 differs from the plain version only in summation order.
+    # On the card, f32 differs from the plain version in summation order and
+    # by the three-TF32 split's dropped lo * lo term (~2^-20 relative).
     tol = {"float32": 1e-4, "bfloat16": 2.5e-2}[name]
     arrs = _numpy_inputs((b, s, h, d), (b, t, kh, d), seed=s + d)
     q, k, v = _torch_inputs(arrs, name, cuda_device)
