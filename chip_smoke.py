@@ -24,7 +24,8 @@ random weights:
   ``sm90`` kernel: three passes on the tensor cores), then the recurrent
   decode; decode against forward at full width in float32, and a float32
   full-depth prefill through the kernel against the plain scan, both on
-  the ``simt`` kernel (CUDA cores);
+  the ``tf32x3`` kernel (float32 on the tensor cores, three TF32 products a
+  product, in the same three passes);
 * serving the MoE, hybrid and MLA families at full width, bf16, 8 x 1024 +
   32 each: ``olmoe-1b-7b`` at full depth (16 layers, every prefill
   attention on the ``sm90`` flash-attention kernel, the MoE layers through
@@ -35,7 +36,8 @@ random weights:
   to its 3 dense layers and one MLA + MoE layer, without the MTP head
   (serving never reads it), which launches no hand kernel (MLA attends at
   head dims 192 / 128 through ``chunked_attention``, as the reference), and
-  its absorbed decode against its reconstructing forward;
+  its absorbed decode against its reconstructing forward; jamba's float32
+  decode check runs its SSM layers on ``tf32x3``;
 * serving the encoder-decoder and VLM families whole, bf16, 8 requests
   each: ``whisper-tiny`` over its 1,500 stub encoder frames with a 384-token
   prompt and 64 generated tokens (every encoder, decoder and cross
@@ -57,8 +59,8 @@ random weights:
   deterministic mode; the group is destroyed before any phase spawns ranks;
 * the four examples (``examples/torch_*.py``) in-process on the card: the
   serve demo's reduced llama3, mamba2 and deepseek-v3 (llama3's attention
-  at head dim 16 on ``simt``, mamba2's scan on the ``simt`` SSD kernel,
-  counted), reduced llama3's prefill logits kernel against plain, the
+  at head dim 16 on ``simt``, mamba2's scan on the ``simt`` SSD kernel in
+  bf16, counted), reduced llama3's prefill logits kernel against plain, the
   quickstart's restore of step 30 (byte for byte) and resume to 40, the
   anomaly demo's table, and the fault-tolerant example on the modelled
   cluster, each against what its CPU run gives;
@@ -146,9 +148,8 @@ from repro_torch.launch.mesh import H100_PEAK_TF32_FLOPS as PEAK_TF32_FLOPS  # n
 ARCH, REQUESTS, PROMPT_LEN, GEN, SEED = "llama3-8b", 8, 1024, 32, 0
 
 # Kernel vs plain tolerances. f32: the same arithmetic in another summation
-# order (flash attention's tf32x3 kernel also leaves out the lo * lo term of
-# its hi / lo split, below 2^-20 relative; the SSD scan is float32
-# throughout). bf16: the plain version rounds the normalised softmax weights to
+# order (the tf32x3 kernels, flash attention's and the SSD scan's, also leave
+# out the lo * lo term of their hi / lo split, below 2^-20 relative). bf16: the plain version rounds the normalised softmax weights to
 # bf16 before P.V, the sm90 kernel the unnormalised ones, the simt kernel
 # none (the reference tests' bf16 tolerance).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2.5e-2}
@@ -178,8 +179,9 @@ SSM_ARCH, SSM_REQUESTS, SSM_PROMPT_LEN, SSM_GEN = "mamba2-130m", 8, 4096, 32
 SSD_SRC = "src/repro_torch/kernels/ssd_scan/csrc/"
 SSD_REPLACES = "src/repro/kernels/ssd_scan/ssd_scan.py:24"
 # SSD kernel vs plain (tests/test_kernels.py): y within this share of max |y|,
-# the final state at rtol = atol (f32: the same float32 arithmetic in another
-# summation order; bf16: x, B, C are bf16, y is rounded to bf16 once).
+# the final state at rtol = atol (f32: three TF32 products a product, summed
+# in float32 in another order; bf16: x, B, C are bf16, y is rounded to bf16
+# once).
 SSD_Y_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 SSD_STATE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # The MoE, hybrid, MLA, encoder-decoder and VLM serving paths: one wave of 8
@@ -207,13 +209,14 @@ QWEN_VL_GRID_W = 32
 MLA_CHECK_BATCH, MLA_CHECK_SEQ = 2, 256
 
 # (b, s, nh, p, g, n, chunk, dtype): tests/test_kernels.py SSD_CASES, the
-# chunks of the decode check's 17-token forward and 16-token prefill (simt),
+# chunks of the decode check's 17-token forward and 16-token prefill (tf32x3),
 # the sm90 kernel's cases of tests/test_torch_ssd_passes.py (one chunk of 64
 # at n 64, n 128 and n 16, chunks of 128 and 256 over several chunks, g 2
 # with nh 8), jamba's SSM layers in its serve wave (bf16, p 64, n 16, 128
 # heads: sm90), then the main path's shape in bf16 (sm90) and float32
-# (simt); x, B, C are views into one conv output, as the model passes them.
-# Each case runs on the kernel ops.variant names.
+# (tf32x3); x, B, C are views into one conv output, as the model passes
+# them. Each case runs on the kernel ops.variant names: every float32 case
+# on tf32x3, the bf16 ones on sm90 or simt.
 SSD_CASES = [
     (2, 128, 8, 32, 1, 16, 64, torch.float32),
     (1, 256, 4, 16, 2, 8, 32, torch.float32),
@@ -232,6 +235,11 @@ SSD_CASES = [
 JAMBA_SSD = SSD_CASES[-1]
 MAIN_SSD = (SSM_REQUESTS, SSM_PROMPT_LEN, 24, 64, 1, 128, 256, torch.bfloat16)
 MAIN_SSD_F32 = MAIN_SSD[:7] + (torch.float32,)
+# The tf32x3 kernel beside MAIN_SSD_F32: the float32 prefill check's shape
+# (2 x 1024, 4 chunks) and jamba's float32 decode check's forward (2 x 17,
+# 128 heads at n 16, one ragged chunk of 17).
+PREFILL_SSD_F32 = (2, 1024) + MAIN_SSD[2:7] + (torch.float32,)
+JAMBA_DECODE_SSD_F32 = (2, 17, 128, 64, 1, 16, 17, torch.float32)
 # The sm90 kernel and its passes at the main path's token count cut two
 # other ways: 64 chunks in a row (the recurrence of pass 2 four times as
 # long, a quarter of its blocks) and 4 (four times the blocks).
@@ -240,6 +248,9 @@ SSD_PASSES = ("chunk_state", "state_pass", "chunk_scan")
 # The sm90 passes' heads per block (pass 1, pass 3) before d_state 16: timed
 # beside the wrapper's own at both sm90 shapes.
 SSD_OLD_HEADS = (4, 8)
+# The tf32x3 pass 3's heads per block timed beside the wrapper's
+# (ops.F32_SCAN_HEADS) at mamba2's float32 shape.
+SSD_F32_HEADS = (4, 24)
 
 # (b, s, t, h, kh, d, causal, dtype): the shapes of tests/test_kernels.py
 # FA_CASES, two ragged cases, the sm90 kernel's cases of
@@ -295,6 +306,10 @@ FA_RATE_CASES = [MAIN_FA[:6] + (False, torch.bfloat16),
 # not.
 FA_RATE_CASES_F32 = [(2, 4096, 4096, 32, 8, 128, True, torch.float32),
                      (2, 4096, 4096, 32, 8, 128, False, torch.float32)]
+# The simt kernel (bf16 at D 16 and 32) against SDPA at a shape that is not
+# launch-bound: the main path's 8 x 1024, causal, GQA 32 / 8.
+FA_RATE_CASES_SIMT = [(REQUESTS, PROMPT_LEN, PROMPT_LEN, 32, 8, d, True, torch.bfloat16)
+                      for d in (16, 32)]
 FA_SRC = "src/repro_torch/kernels/flash_attention/csrc/"
 FA_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:25"
 
@@ -566,7 +581,8 @@ def phase_kernel(fa_ops, fa_ref):
             "max_abs_err": row["max_abs_err"]}
         emit(timings[kind])
 
-    for kind, cases, seed in (("sm90", FA_RATE_CASES, 300), ("tf32x3", FA_RATE_CASES_F32, 310)):
+    for kind, cases, seed in (("sm90", FA_RATE_CASES, 300), ("tf32x3", FA_RATE_CASES_F32, 310),
+                              ("simt", FA_RATE_CASES_SIMT, 320)):
         rates = []
         for i, case in enumerate(cases):
             causal = case[6]
@@ -574,12 +590,21 @@ def phase_kernel(fa_ops, fa_ref):
             q, k, v = fa_inputs(case, seed=seed + i)
             kernel_ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=causal))
             library_ms = time_ms(sdpa_call(q, k, v, causal))
-            del q, k, v
-            bound_s, _, flops, _ = fa_bound(case)
+            bound_s, bound_by, flops, _ = fa_bound(case)
             rates.append({"shape": list(case[:6]), "causal": causal, "kernel_ms": kernel_ms,
                           "library_ms": library_ms, "bound_ms": bound_s * 1e3,
-                          "kernel_tflops": flops / kernel_ms / 1e9,
+                          "bound_by": bound_by, "kernel_tflops": flops / kernel_ms / 1e9,
                           "library_tflops": flops / library_ms / 1e9})
+            if kind == "simt":
+                # the CUDA-core kernel's error and its plain version's time here
+                rates[-1]["plain_ms"] = time_ms(
+                    lambda: fa_ref.attention_reference(q, k, v, causal=causal))
+                rates[-1]["max_abs_err"] = float(
+                    (fa_ops.flash_attention(q, k, v, causal=causal).float()
+                     - fa_ref.attention_reference(q, k, v, causal=causal).float()).abs().max())
+                check(rates[-1]["max_abs_err"] <= TOL[torch.bfloat16],
+                      f"simt at {case}: {rates[-1]['max_abs_err']}")
+            del q, k, v
         emit({"phase": "kernel_rates", "variant": kind,
               "dtype": str(cases[0][7]).split(".")[1],
               "library": "scaled_dot_product_attention (GQA expanded)", "cases": rates})
@@ -994,8 +1019,8 @@ def phase_families(kernels, serve_cli, engine, model_mod, mesh):
         del kept
         runs[arch] = out
         freed(arch)
-    runs["decode_simt"] = phase_decode_check(engine, model_mod, kernels["ssd"],
-                                             "jamba-v0.1-52b", variant="simt", kind="ssd")
+    runs["decode_ssd_f32"] = phase_decode_check(engine, model_mod, kernels["ssd"],
+                                                "jamba-v0.1-52b", variant="tf32x3", kind="ssd")
     freed("decode_check_jamba")
     for arch, layers in (("whisper-tiny", None), ("qwen2-vl-2b", 2)):
         runs[f"decode_f32_{arch}"] = phase_decode_check(engine, model_mod, kernels["fa"], arch,
@@ -1230,57 +1255,68 @@ def ssd_bound(case):
     """Least time (s) for the scan: x read and y written once, B, C, dt and A
     read once, the final state written once; operations of the chunked
     algorithm on the causal half of each chunk (C.B^T once per group, its
-    product with x dt, the chunk states and the inter-chunk term), at the
-    peak for the inputs' type."""
+    product with x dt, the chunk states and the inter-chunk term): bf16 on
+    the tensor cores at the bf16 peak, float32 on the tf32x3 kernel as three
+    TF32 products each at the TF32 peak (as ``fa_bound``). ``flops`` is the
+    function's own count (one product each)."""
     b, s, nh, p, g, n, chunk, dt = case
     c = min(chunk, s)
     pairs = c * (c + 1) // 2
     flops = 2 * b * (s // c) * (g * n * pairs + nh * p * pairs + 2 * nh * c * p * n)
     elt = torch.tensor([], dtype=dt).element_size()
     nbytes = (2 * b * s * nh * p + 2 * b * s * g * n) * elt + 4 * (b * s * nh + nh + b * nh * p * n)
-    peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_S
+    t_ops = flops / PEAK_BF16_FLOPS if dt == torch.bfloat16 else 3 * flops / PEAK_TF32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_S
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
 
 
 def ssd_pass_bound(name, case):
-    """Least time (s) for one sm90 pass at ``case``: what the pass must read
-    and write (each once) and its products, at the peak for their type.
-    chunk_state: x, B, dt, A in; the f32 chunk states and cum (b, nh, s) out;
-    (x w)^T B. state_pass: the chunk states and cum_last in, the bf16
-    starting states and the final state out; a multiply-add a value a chunk
-    (float32, CUDA cores). chunk_scan: x, B, C, cum, dt and the starting
-    states in, y out; C.B^T once per group and its product with x on the
-    causal half, and the inter-chunk term."""
+    """Least time (s) for one pass of the sm90 (bf16) or tf32x3 (float32)
+    kernel at ``case``: what the pass must read and write (each once) and its
+    products, at the peak for their type (float32: three TF32 products each
+    at the TF32 peak). chunk_state: x, B, dt, A in; the f32 chunk states and
+    cum (b, nh, s) out; (x w)^T B. state_pass: the chunk states and cum_last
+    in, the starting states (bf16 for sm90, float32 for tf32x3) and the final
+    state out; a multiply-add a value a chunk (float32, CUDA cores).
+    chunk_scan: x, B, C, cum, dt and the starting states in, y out; C.B^T once
+    per group and its product with x on the causal half, and the inter-chunk
+    term."""
     b, s, nh, p, g, n, chunk, dt = case
     c = min(chunk, s)
     l, pairs = s // c, c * (c + 1) // 2
     elt = torch.tensor([], dtype=dt).element_size()
     states = b * l * nh * p * n
+    # the tensor-core products: bf16 at its peak, float32 three TF32 products
+    peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_TF32_FLOPS / 3
+    h_elt = 2 if dt == torch.bfloat16 else 4
     if name == "chunk_state":
         nbytes = (b * s * nh * p + b * s * g * n) * elt + 4 * (b * s * nh + nh) + 4 * states \
             + 4 * b * nh * s
-        flops, peak = 2 * states * c, PEAK_BF16_FLOPS
+        flops = 2 * states * c
     elif name == "state_pass":
-        nbytes = 4 * states + 4 * b * nh * l + 2 * states + 4 * b * nh * p * n
+        nbytes = 4 * states + 4 * b * nh * l + h_elt * states + 4 * b * nh * p * n
         flops, peak = 2 * states, PEAK_F32_FLOPS
     else:
-        nbytes = (2 * b * s * nh * p + 2 * b * s * g * n) * elt + 2 * 4 * b * nh * s + 2 * states
+        nbytes = (2 * b * s * nh * p + 2 * b * s * g * n) * elt + 2 * 4 * b * nh * s \
+            + h_elt * states
         flops = 2 * b * l * (g * n * pairs + nh * p * pairs + nh * c * p * n)
-        peak = PEAK_BF16_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_S
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def ssd_pass_times(ssd_ops, case, x, dtv, A, B, C):
-    """Each sm90 pass alone at ``case`` (through its wrapper, as ``ssd_scan``
-    calls it), beside its own bound."""
+    """Each pass of the sm90 (bf16) or tf32x3 (float32) kernel alone at
+    ``case`` (through its wrapper, as ``ssd_scan`` calls it), beside its own
+    bound. tf32x3's pass 2 is timed into a buffer of its own (``ssd_scan``
+    writes it over the chunk states)."""
     c = min(case[6], case[1])
+    h_dtype = torch.bfloat16 if case[7] == torch.bfloat16 else torch.float32
     states, cum = ssd_ops.chunk_state(x, dtv, A, B, c)
-    h_in, _ = ssd_ops.state_pass(states, cum, c, None)
+    h_in, _ = ssd_ops.state_pass(states, cum, c, None, dtype=h_dtype)
     out = {}
     for name, fn in (("chunk_state", lambda: ssd_ops.chunk_state(x, dtv, A, B, c)),
-                     ("state_pass", lambda: ssd_ops.state_pass(states, cum, c, None)),
+                     ("state_pass", lambda: ssd_ops.state_pass(states, cum, c, None,
+                                                               dtype=h_dtype)),
                      ("chunk_scan", lambda: ssd_ops.chunk_scan(x, dtv, B, C, cum, h_in, c))):
         ms = time_ms(fn)
         bound_s, bound_by = ssd_pass_bound(name, case)
@@ -1290,19 +1326,22 @@ def ssd_pass_times(ssd_ops, case, x, dtv, A, B, C):
 
 
 def ssd_passes_vs_plain(ssd_ops, ssd_ref, case):
-    """Each sm90 pass at ``case`` against its own plain pass: chunk states and
-    cum from the same inputs, the starting states from an init state, the
-    outputs from the same bf16 starting states."""
+    """Each pass of the kernel ``case``'s dtype takes (sm90 for bf16, tf32x3
+    for float32) against its own plain pass: chunk states and cum from the
+    same inputs, the starting states from an init state, the outputs from the
+    same starting states (rounded to bf16 for sm90). Returns the kernel."""
     x, dtv, A, B, C = ssd_inputs(case, seed=9)
-    b, s, nh, p, g, n, c = case[:7]
+    b, s, nh, p, g, n, c, dt = case
+    c = min(c, s)
+    kind = "sm90" if dt == torch.bfloat16 else "tf32x3"
     init = torch.randn(b, nh, p, n, device="cuda",
                        generator=torch.Generator(device="cuda").manual_seed(10))
-    tol = SSD_STATE_TOL[torch.bfloat16]
+    tol = SSD_STATE_TOL[dt]
     states, cum = ssd_ops.chunk_state(x, dtv, A, B, c)
     w_states, w_cum = ssd_ref.chunk_state_reference(x, dtv, A, B, c)
-    h_in, final = ssd_ops.state_pass(w_states, w_cum, c, init)
+    h_in, final = ssd_ops.state_pass(w_states, w_cum, c, init, dtype=dt)
     w_h_in, w_final = ssd_ref.state_pass_reference(w_states, w_cum, c, init)
-    h16 = w_h_in.to(torch.bfloat16)
+    h16 = w_h_in.to(dt)
     y = ssd_ops.chunk_scan(x, dtv, B, C, w_cum, h16, c)
     wy = ssd_ref.chunk_scan_reference(x, dtv, B, C, w_cum, h16.float(), c)
     torch.cuda.synchronize()
@@ -1320,26 +1359,29 @@ def ssd_passes_vs_plain(ssd_ops, ssd_ref, case):
             ("state_pass final", close(final, w_final, SSD_STATE_TOL[torch.float32]),
              SSD_STATE_TOL[torch.float32])):
         passes[name] = {"max_abs_err": err, "tol": t, "ok": ok}
-        check(ok, f"sm90 {name} at {list(case[:7])} disagrees with its plain pass: "
+        check(ok, f"{kind} {name} at {list(case[:7])} disagrees with its plain pass: "
                   f"{passes[name]}")
     y_err = float((y.float() - wy.float()).abs().max())
     y_scale = float(wy.float().abs().max())
     passes["chunk_scan y"] = {"max_abs_err": y_err, "y_scale": y_scale,
-                              "y_tol": SSD_Y_TOL[torch.bfloat16],
-                              "ok": y_err / y_scale < SSD_Y_TOL[torch.bfloat16]}
+                              "y_tol": SSD_Y_TOL[dt], "ok": y_err / y_scale < SSD_Y_TOL[dt]}
     check(passes["chunk_scan y"]["ok"],
-          f"sm90 chunk_scan at {list(case[:7])} disagrees: {passes['chunk_scan y']}")
-    emit({"phase": "ssd_passes_vs_plain", "shape": list(case[:7]), "passes": passes})
+          f"{kind} chunk_scan at {list(case[:7])} disagrees: {passes['chunk_scan y']}")
+    emit({"phase": "ssd_passes_vs_plain", "variant": kind, "shape": list(case[:7]),
+          "dtype": str(dt).split(".")[1], "passes": passes})
+    return kind
 
 
 def phase_ssd_kernel(ssd_ops, ssd_ref):
     """Every listed shape on the kernel the variant table names, against the
     plain version, jamba's shape on simt too (in views TMA cannot read), and
-    the init-state continuation; each sm90 pass against its own plain pass
-    at mamba2's and jamba's shapes; then the kernels' times (sm90 at both
-    shapes in bf16, each pass beside its bound; simt at mamba2's in float32
-    and at jamba's), and of the sm90 kernel at two other cuts of mamba2's
-    tokens."""
+    the init-state continuation (tf32x3); each sm90 pass against its own
+    plain pass at mamba2's and jamba's shapes, each tf32x3 pass at mamba2's
+    in float32 and at jamba's float32 decode check's; then the kernels'
+    times (sm90 at both shapes in bf16 and tf32x3 at mamba2's and the
+    float32 prefill check's, each pass beside its bound; simt at jamba's
+    shape in unaligned views), and of the sm90 kernel at two other cuts of
+    mamba2's tokens."""
     rows = []
 
     def compare(case, got, want, what, kind):
@@ -1362,17 +1404,19 @@ def phase_ssd_kernel(ssd_ops, ssd_ref):
         x, dtv, A, B, C = ssd_inputs(case, seed=200 + i)
         c = min(case[6], case[1])
         kind = ssd_ops.variant(case[7], case[3], case[5], c, ssd_ops.tma_aligned(x, B, C))
-        ssd_ops.LAUNCHES_BY_VARIANT.update(sm90=0, simt=0)
+        check(kind == "tf32x3" if case[7] == torch.float32 else kind != "tf32x3",
+              f"{case} runs on {kind}")
+        ssd_ops.LAUNCHES_BY_VARIANT.update({k: 0 for k in ssd_ops.LAUNCHES_BY_VARIANT})
         got = ssd_ops.ssd_scan(x, dtv, A, B, C, chunk=case[6])
         launched = dict(ssd_ops.LAUNCHES_BY_VARIANT)
         torch.cuda.synchronize()
-        check(launched == {"sm90": int(kind == "sm90"), "simt": int(kind == "simt")},
+        check(launched == {k: int(k == kind) for k in launched},
               f"{case} launched {launched}, want one {kind}")
         compare(case, got, ssd_ref.ssd_reference(x, dtv, A, B, C, chunk=c), "kernel vs plain",
                 kind)
         del x, dtv, A, B, C, got
-    check(rows[-2]["variant"] == "sm90" and rows[-1]["variant"] == "simt",
-          "the main shape must run on sm90 in bf16 and on simt in float32")
+    check(rows[-2]["variant"] == "sm90" and rows[-1]["variant"] == "tf32x3",
+          "the main shape must run on sm90 in bf16 and on tf32x3 in float32")
     jamba_row = rows[len(SSD_CASES) - 1]
     check(jamba_row["variant"] == "sm90", "jamba's SSD shape must run on sm90")
     # jamba's shape on simt, the kernel its SSM layers ran on before sm90 took
@@ -1384,55 +1428,80 @@ def phase_ssd_kernel(ssd_ops, ssd_ref):
     compare(JAMBA_SSD, ssd_ops.ssd_scan(x, dtv, A, B, C, chunk=JAMBA_SSD[6]),
             ssd_ref.ssd_reference(x, dtv, A, B, C, chunk=JAMBA_SSD[6]),
             "kernel vs plain, unaligned views", kind)
-    jamba_simt_row = rows[-1]
     del x, dtv, A, B, C
     # The continuation of tests/test_kernels.py: two halves, the second from
     # the first one's final state, against the whole sequence.
     case = (1, 128, 4, 16, 1, 8, 32, torch.float32)
     x, dtv, A, B, C = ssd_inputs(case, seed=199)
     half = case[1] // 2
+    ssd_ops.LAUNCHES_BY_VARIANT.update({k: 0 for k in ssd_ops.LAUNCHES_BY_VARIANT})
     _, h1 = ssd_ops.ssd_scan(x[:, :half], dtv[:, :half], A, B[:, :half], C[:, :half], chunk=32)
     y2, h2 = ssd_ops.ssd_scan(x[:, half:], dtv[:, half:], A, B[:, half:], C[:, half:],
                               chunk=32, init_state=h1)
     torch.cuda.synchronize()
+    check(ssd_ops.LAUNCHES_BY_VARIANT["tf32x3"] == 2,
+          f"continuation launched {ssd_ops.LAUNCHES_BY_VARIANT}, want two tf32x3")
     wy, wh = ssd_ref.ssd_reference(x, dtv, A, B, C, chunk=32)
-    compare(case, (y2, h2), (wy[:, half:], wh), "init-state continuation", "simt")
+    compare(case, (y2, h2), (wy[:, half:], wh), "init-state continuation", "tf32x3")
     emit({"phase": "ssd_kernel_vs_plain", "cases": rows})
 
-    # Each sm90 pass against its own plain pass at mamba2's and jamba's shapes
-    # (the starting states from an init state; pass 3 given the same bf16
-    # states).
-    for case in (MAIN_SSD, JAMBA_SSD):
+    # Each pass against its own plain pass (the starting states from an init
+    # state; pass 3 given the same starting states): sm90 at mamba2's and
+    # jamba's bf16 shapes, tf32x3 at mamba2's in float32 and at jamba's
+    # float32 decode check's.
+    for case in (MAIN_SSD, JAMBA_SSD, MAIN_SSD_F32, JAMBA_DECODE_SSD_F32):
         ssd_passes_vs_plain(ssd_ops, ssd_ref, case)
 
     # each kernel's times at its main-path shapes: sm90 at mamba2's and
-    # jamba's (bf16, n 16), simt at mamba2's in float32 and at jamba's in the
-    # unaligned views
+    # jamba's (bf16, n 16), tf32x3 at mamba2's and the float32 prefill
+    # check's, simt at jamba's in the unaligned views
     timings = {}
-    for key, case, row, pad in (("sm90", MAIN_SSD, rows[len(SSD_CASES)], 0),
-                                ("sm90_jamba", JAMBA_SSD, jamba_row, 0),
-                                ("simt_f32", MAIN_SSD_F32, rows[len(SSD_CASES) + 1], 0),
-                                ("simt_jamba", JAMBA_SSD, jamba_simt_row, 4)):
+    for key, case, pad in (("sm90", MAIN_SSD, 0), ("sm90_jamba", JAMBA_SSD, 0),
+                           ("tf32x3", MAIN_SSD_F32, 0), ("tf32x3_prefill", PREFILL_SSD_F32, 0),
+                           ("simt_jamba", JAMBA_SSD, 4)):
         x, dtv, A, B, C = ssd_inputs(case, seed=8, pad=pad)
         chunk = case[6]
-        kind = row["variant"]
+        kind = key.split("_")[0]
         check(ssd_ops.variant(case[7], case[3], case[5], chunk,
                               ssd_ops.tma_aligned(x, B, C)) == kind, f"{key} is not {kind}")
+        # the error at the timed inputs (the timing shapes' own check)
+        got_y, got_h = ssd_ops.ssd_scan(x, dtv, A, B, C, chunk=chunk)
+        want_y, want_h = ssd_ref.ssd_reference(x, dtv, A, B, C, chunk=chunk)
+        err = float((got_y.float() - want_y.float()).abs().max())
+        y_scale = float(want_y.float().abs().max())
+        check(err / y_scale < SSD_Y_TOL[case[7]], f"{key}: y error {err} of {y_scale}")
+        del got_y, got_h, want_y, want_h
         kernel_ms = time_ms(lambda: ssd_ops.ssd_scan(x, dtv, A, B, C, chunk=chunk))
         plain_ms = time_ms(lambda: ssd_ref.ssd_reference(x, dtv, A, B, C, chunk=chunk))
         bound_s, bound_by, flops, nbytes = ssd_bound(case)
         timings[key] = {
             "phase": "ssd_kernel_timing", "variant": kind, "shape": list(case[:7]),
-            "dtype": row["dtype"], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "dtype": str(case[7]).split(".")[1], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": None, "library": "none: no single PyTorch call computes the SSD scan",
             "bound_ms": bound_s * 1e3, "bound_by": bound_by, "gflop": flops / 1e9,
             "mbytes": nbytes / 1e6, "kernel_tflops": flops / (kernel_ms * 1e-3) / 1e12,
             "roofline_share": bound_s * 1e3 / kernel_ms, "vs_plain": plain_ms / kernel_ms,
-            "max_abs_err": row["max_abs_err"]}
+            "max_abs_err": err, "y_scale": y_scale}
         if pad:
             timings[key]["views"] = f"rows padded by {pad} bf16: not TMA-aligned"
-        if kind == "sm90":
+        if kind == "tf32x3":
+            # the same operations on the CUDA cores at the float32 peak
+            timings[key]["cuda_core_floor_ms"] = flops / PEAK_F32_FLOPS * 1e3
+        if kind in ("sm90", "tf32x3"):
             timings[key]["passes"] = ssd_pass_times(ssd_ops, case, x, dtv, A, B, C)
+        if key == "tf32x3":
+            # pass 3's heads per block: the wrapper's beside fewer and more
+            used = ssd_ops.F32_SCAN_HEADS
+            at = {}
+            for heads in SSD_F32_HEADS:
+                ssd_ops.F32_SCAN_HEADS = heads
+                try:
+                    at[heads] = time_ms(lambda: ssd_ops.ssd_scan(x, dtv, A, B, C, chunk=chunk))
+                finally:
+                    ssd_ops.F32_SCAN_HEADS = used
+            timings[key]["heads_per_block"] = {"used": used, "kernel_ms": kernel_ms,
+                                               "kernel_ms_at": at}
+        if kind == "sm90":
             # the heads per block (pass 1, pass 3) the wrapper uses, beside
             # the 4 and 8 it used before d_state 16 came to sm90
             used = (ssd_ops.STATE_HEADS, ssd_ops.SCAN_HEADS)
@@ -2819,9 +2888,9 @@ def main() -> int:
     ssd_launches, _, _ = phase_serve(kernels, serve_cli, engine, get_config(SSM_ARCH),
                                      SSM_REQUESTS, SSM_PROMPT_LEN, SSM_GEN, {"ssd": "sm90"})
     torch.cuda.empty_cache()
-    ssd_checks = phase_decode_check(engine, model_mod, ssd_ops, SSM_ARCH, variant="simt",
+    ssd_checks = phase_decode_check(engine, model_mod, ssd_ops, SSM_ARCH, variant="tf32x3",
                                     kind="ssd")
-    ssd_checks += phase_f32_prefill_check(engine, model_mod, ssd_ops, SSM_ARCH, "simt")
+    ssd_checks += phase_f32_prefill_check(engine, model_mod, ssd_ops, SSM_ARCH, "tf32x3")
     torch.cuda.empty_cache()
     meshes = parallel_open()
     families = phase_families(kernels, serve_cli, engine, model_mod, meshes["data_model"])
@@ -2902,29 +2971,39 @@ def main() -> int:
             "launches_by_path": by_path, "max_abs_err": quant["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
+    # tf32x3: every float32 scan on the card, mamba2's decode check (4) and
+    # full-depth prefill check (24), jamba's decode check (4); simt: the
+    # serve demo's reduced mamba2 prefill, bf16 at p 16
     ssd_paths = {
         "sm90": {"serve_mamba2": ssd_launches["ssd"],
                  "serve_jamba": families["jamba-v0.1-52b"]["launches"]["ssd"]},
-        "simt": {"decode_check_jamba": families["decode_simt"], "f32_checks_mamba2": ssd_checks,
-                 "examples_serve_mamba2":
-                     examples["serve_demo"]["mamba2-130m"]["launches_by_variant"]["ssd"]["simt"]}}
-    # sm90 at mamba2's shape with jamba's beside it; simt at mamba2's in
-    # float32 (its checks' dtype) with jamba's bf16 shape beside it
-    for name, kind, src, key, other in (
-            ("ssd_scan", "sm90", "ssd_scan_sm90.cu", "sm90", "sm90_jamba"),
-            ("ssd_scan_simt", "simt", "ssd_scan.cu", "simt_f32", "simt_jamba")):
-        t, o = ssd_timing[key], ssd_timing[other]
+        "tf32x3": {"decode_check_jamba": families["decode_ssd_f32"],
+                   "f32_checks_mamba2": ssd_checks},
+        "simt": {"examples_serve_mamba2":
+                 examples["serve_demo"]["mamba2-130m"]["launches_by_variant"]["ssd"]["simt"]}}
+    check(ssd_paths["tf32x3"] == {"decode_check_jamba": 4, "f32_checks_mamba2": 28},
+          f"float32 SSD launches {ssd_paths['tf32x3']}")
+    # sm90 at mamba2's shape with jamba's beside it; tf32x3 at mamba2's in
+    # float32 with the float32 prefill check's beside it; simt at jamba's
+    # bf16 shape in views TMA cannot read
+    for name, kind, src, key, others in (
+            ("ssd_scan", "sm90", "ssd_scan_sm90.cu", "sm90", {"jamba_shape": "sm90_jamba"}),
+            ("ssd_scan_tf32x3", "tf32x3", "ssd_scan_f32_sm90.cu", "tf32x3",
+             {"prefill_check_shape": "tf32x3_prefill"}),
+            ("ssd_scan_simt", "simt", "ssd_scan.cu", "simt_jamba", {})):
+        t = ssd_timing[key]
         entries.append({
             "name": name, "route": "cuda", "source": SSD_SRC + src, "replaces": SSD_REPLACES,
             "launches": sum(ssd_paths[kind].values()), "launches_by_path": ssd_paths[kind],
             "shape": t["shape"], "max_abs_err": t["max_abs_err"], "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "roofline_share": t["roofline_share"], "dtype": t["dtype"],
-            **({"passes": t["passes"]} if "passes" in t else {}),
-            "jamba_shape": {k: o[k] for k in ("shape", "dtype", "kernel_ms", "plain_ms",
-                                              "bound_ms", "bound_by", "max_abs_err",
-                                              "passes", "heads_per_block", "views")
-                            if k in o}})
+            **{k: t[k] for k in ("passes", "cuda_core_floor_ms", "heads_per_block", "views")
+               if k in t},
+            **{label: {k: ssd_timing[o][k] for k in (
+                "shape", "dtype", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "roofline_share", "max_abs_err", "passes", "heads_per_block", "views")
+                if k in ssd_timing[o]} for label, o in others.items()}})
     idle = [e["name"] for e in entries if not e["launches"]]
     check(not idle, f"kernels never launched on their paths: {idle}")
     emit({"kernels": entries})

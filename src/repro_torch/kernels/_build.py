@@ -2,8 +2,8 @@
 
 Each kernel package keeps its sources under ``csrc/*.cu`` and the headers
 they include under ``csrc/*.cuh``; headers shared by several packages (the
-Hopper building blocks, ``hopper.cuh``) live in ``kernels/csrc/`` and reach
-nvcc through ``-I``. ``nvcc`` compiles a package's sources for Hopper
+Hopper building blocks, ``hopper.cuh``; the TF32x3 products, ``tf32x3.cuh``)
+live in ``kernels/csrc/`` and reach nvcc through ``-I``. ``nvcc`` compiles a package's sources for Hopper
 (``sm_90a``) into a shared library with a plain C interface, under
 ``build/`` at the repository root (listed in ``.gitignore``). The file name
 carries a hash of the sources, the package's headers, every shared header

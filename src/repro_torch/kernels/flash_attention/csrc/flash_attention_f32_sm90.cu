@@ -85,11 +85,13 @@
 
 #include "fa_tiles.cuh"
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace repro_fa_tf32 {
 
 using namespace repro_fa_tiles;
 using namespace repro_sm90;
+using namespace repro_tf32x3;   // low, u32, mma_tf32
 
 constexpr int BM = 128;              // q rows per block
 constexpr int BN = 64;               // kv rows per tile
@@ -144,27 +146,6 @@ __device__ __forceinline__ int perm(int g) {
     return (g & 1) ? (2 * t) ^ 5 : 2 * t;
   }
 }
-
-// The low part of x = hi + lo, where hi is x with its low 13 bits cleared:
-// lo = x - hi, exact in float32. x itself is the hi operand, since a tensor
-// core reads only the top 19 bits of a TF32 operand.
-__device__ __forceinline__ uint32_t low(float x) {
-  return __float_as_uint(x - __uint_as_float(__float_as_uint(x) & 0xffffe000u));
-}
-
-// D (16 x 8, f32) += A (16 x 8, tf32, row) * B (8 x 8, tf32, col). Thread
-// lane, g = lane / 4, t = lane % 4: a = (row g, col t), (g + 8, t), (g, t + 4),
-// (g + 8, t + 4); b = (k t, n g), (k t + 4, n g); d = (g, 2t), (g, 2t + 1),
-// (g + 8, 2t), (g + 8, 2t + 1).
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t u32(float x) { return __float_as_uint(x); }
 
 // dst[off .. off + N) = the N floats at src (N = 2 or 4, one vector load).
 template <int N, int M>

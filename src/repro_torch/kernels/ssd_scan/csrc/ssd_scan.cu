@@ -10,12 +10,14 @@
 //          + exp(cum_i) C_i . state                                  (inter)
 //   state <- state exp(cum_last) + sum_j B_j exp(cum_last - cum_j) dt_j x_j
 // Head h reads group h / (nh / g) of B and C. An optional init state comes in,
-// the final state goes out in float32, y in x's dtype.
+// the final state goes out in float32, y in bf16.
 //
-// No serving path reaches this kernel: mamba2-130m's and jamba-v0.1-52b's
-// SSM layers (bf16, d_state 128 and 16) run on ssd_scan_sm90.cu. This one
-// takes float32 (the models' float32 checks), other head dims and d_states,
-// ragged chunks and views TMA cannot read.
+// bf16 only, the "simt" variant. No full-size serving path reaches this
+// kernel: mamba2-130m's and jamba-v0.1-52b's SSM layers (bf16, d_state 128
+// and 16) run on ssd_scan_sm90.cu, and float32 at every shape on
+// ssd_scan_f32_sm90.cu ("tf32x3"). This one takes bf16 at the head dims,
+// d_states, chunks and views the sm90 kernel does not (the reduced configs'
+// p 16 / n 16, ragged chunks, views TMA cannot read).
 //
 // Bound on an H100 SXM at the serving main path (mamba2-130m prefill: b 8,
 // s 4096, nh 24, p 64, g 1, n 128, c 256, bf16 x / B / C; 24 launches per
@@ -29,17 +31,14 @@
 //
 // What this design does about that bound: it is the simple, correct first
 // version, and it is bound by neither. All arithmetic is float32 FMAs on the
-// CUDA cores (67 TFLOP/s peak), as the reference computes in float32, from
-// 4 x 4 register micro-tiles over float32 tiles in shared memory, so shared
-// memory bandwidth paces it. One block per (head, batch) recomputes C.B^T for
-// every head of a group and runs whole 64-row diagonal tiles (~1.9x the
-// operations the bound counts), and 192 blocks of ~135 KB shared memory run
-// one per SM, 1.45 waves on 132 SMs. Each input byte is read from device
-// memory about once (B and C tiles again from L2), so bytes are far from the
-// limit. It takes ~7.5 ms at the main shape, ~110x the bound and slower than
-// the plain version (PERF.md). Reaching the bound needs the products on
-// tensor cores (mma.sync / wgmma on bf16 tiles, TMA), C.B^T shared across the
-// heads of a group, and more blocks in flight: later work.
+// CUDA cores (67 TFLOP/s peak), from 4 x 4 register micro-tiles over float32
+// tiles in shared memory, so shared memory bandwidth paces it. One block per
+// (head, batch) recomputes C.B^T for every head of a group and runs whole
+// 64-row diagonal tiles (~1.9x the operations the bound counts), and 192
+// blocks of ~135 KB shared memory run one per SM, 1.45 waves on 132 SMs:
+// ~110x the bound at the main shape in bf16 (PERF.md), which is why the
+// tensor-core kernels, ssd_scan_sm90.cu (bf16) and ssd_scan_f32_sm90.cu
+// (float32), take every shape they can read.
 //
 // Layout: one block of 256 threads per (head, batch). A loop over chunks
 // takes the place of the TPU grid's sequential ("arbitrary") chunk axis; the
@@ -68,11 +67,9 @@ constexpr int CMAX = 256;        // longest chunk
 constexpr int NMAX = 128;        // largest d_state
 constexpr int NK = NMAX / 16;    // state columns per thread, at most
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
@@ -331,8 +328,8 @@ cudaError_t launch(const void* x, const void* dt, const void* A, const void* B,
 
 using repro_ssd::launch;
 
-// dtype (of x, B, C and y): 0 = float32, 1 = bfloat16. dt, A, init and the
-// final state are float32; A, init and the final state are contiguous, init
+// dtype (of x, B, C and y): 1 = bfloat16, the only one taken (float32 runs
+// on ssd_scan_f32_sm90.cu). dt, A, init and the final state are float32; A, init and the final state are contiguous, init
 // may be NULL (a zero state). Strides are in elements for x (b, s, h), dt
 // (b, s, h), B and C (b, s, g) and y (b, s, h); the last dim of x, B, C and
 // y has unit stride. Returns a cudaError_t.
@@ -355,11 +352,7 @@ extern "C" int ssd_fwd(const void* x, const void* dt, const void* A, const void*
   return launch<TYPE, DIM>(x, dt, A, B, C, init, y, hf, batch, S, NH, G, N, CH, sxb,  \
                            sxs, sxh, sdb, sds, sdh, sbb, sbs, sbg, scb, scs, scg, syb, \
                            sys, syh, st)
-  if (dtype == 0) {
-    if (P == 16) SSD_LAUNCH(float, 16);
-    if (P == 32) SSD_LAUNCH(float, 32);
-    if (P == 64) SSD_LAUNCH(float, 64);
-  } else if (dtype == 1) {
+  if (dtype == 1) {
     if (P == 16) SSD_LAUNCH(__nv_bfloat16, 16);
     if (P == 32) SSD_LAUNCH(__nv_bfloat16, 32);
     if (P == 64) SSD_LAUNCH(__nv_bfloat16, 64);

@@ -17,11 +17,18 @@ Which kernel is fixed by shape, dtype and alignment before the launch
   the outputs with C.B^T shared by a block's heads (:func:`chunk_scan`); the
   serving paths (mamba2-130m at n 128, jamba-v0.1-52b at n 16, whose B, C
   and states the kernel lays out in 32-byte rows);
-* ``"simt"``: everything else the CUDA cores take (float32, p 16 / 32 / 64,
-  n <= 128, chunks <= 256), ``csrc/ssd_scan.cu``, one launch.
+* ``"tf32x3"``: float32 at every shape the card takes (p 16 / 32 / 64, n <=
+  128, chunks <= 256, any views with unit stride last), on the tensor cores
+  in the same three passes, ``csrc/ssd_scan_f32_sm90.cu``: each product is
+  three TF32 products of a hi / lo split, which keeps float32's accuracy;
+  the starting states are float32 and ``ssd_scan`` writes them over the chunk
+  states in place;
+* ``"simt"``: bf16 at the shapes ``sm90`` does not take (p 16 / 32, n
+  outside ``SM90_N``, chunks outside ``SM90_CHUNKS``, views TMA cannot read),
+  on the CUDA cores, ``csrc/ssd_scan.cu``, one launch.
 
-Both read x, B and C through their (b, s, head or group) strides, so the
-model's views into the conv output reach them with no copy.
+All three read x, B and C through their (b, s, head or group) strides, so
+the model's views into the conv output reach them with no copy.
 
 ``LAUNCHES`` counts one per :func:`ssd_scan` call on the card, whatever the
 number of passes, so that a run can show that its main path went through the
@@ -31,6 +38,7 @@ called alone counts nothing.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -41,9 +49,9 @@ from .ref import chunk_scan_reference, chunk_state_reference, ssd_reference, sta
 # the plain version's devices: the CPU, and meta tensors (shapes only)
 _PLAIN_DEVICES = ("cpu", "meta")
 LAUNCHES = 0
-LAUNCHES_BY_VARIANT = {"sm90": 0, "simt": 0}
+LAUNCHES_BY_VARIANT = {"sm90": 0, "tf32x3": 0, "simt": 0}
 
-SUPPORTED_P = (16, 32, 64)     # head dims the simt kernel is instantiated for
+SUPPORTED_P = (16, 32, 64)     # head dims the simt and tf32x3 kernels are instantiated for
 MAX_N = 128                    # d_state
 MAX_CHUNK = 256
 SM90_P = (64,)
@@ -54,6 +62,11 @@ SM90_CHUNKS = (64, 128, 256)
 # longer blocks run faster at jamba's 128 heads to a group than 4 and 8, and
 # level at mamba2's 24 (chip_smoke.py times both shapes at both settings).
 STATE_HEADS, SCAN_HEADS = 16, 32
+# Heads per block of the tf32x3 pass 3, which forms C.B^T once for them: the
+# largest divisor of the heads per group up to this many whose grid still
+# has a block for every SM (``_f32_scan_heads``; chip_smoke.py times 12
+# beside 4 and 24 at mamba2's float32 shape).
+F32_SCAN_HEADS = 12
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _C = ctypes.c_int
 _L = ctypes.c_longlong
@@ -65,6 +78,8 @@ def _lib():
     if lib.ssd_fwd.argtypes is None:
         for fn in (lib.ssd_fwd, lib.ssd_chunk_state_sm90, lib.ssd_state_pass_sm90,
                    lib.ssd_chunk_scan_sm90):
+            fn.restype = ctypes.c_int
+        for fn in (lib.ssd_chunk_state_f32, lib.ssd_state_pass_f32, lib.ssd_chunk_scan_f32):
             fn.restype = ctypes.c_int
         lib.ssd_fwd.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P,   # x dt A B C init y state
                                 _C, _C,                           # dtype device
@@ -84,6 +99,18 @@ def _lib():
                                             _L, _L, _L, _L, _L, _L,       # x, B strides
                                             _L, _L, _L, _L, _L, _L,       # C, y strides
                                             _P]                           # stream
+        lib.ssd_chunk_state_f32.argtypes = [_P, _P, _P, _P, _P, _P,       # x dt A B states cum
+                                            _C, _C, _C, _C, _C, _C, _C,   # b s nh p g n chunk
+                                            _C, _C,                       # 16-byte copies of x, B
+                                            _L, _L, _L, _L, _L, _L,       # x, dt strides
+                                            _L, _L, _L, _P]               # B strides, stream
+        lib.ssd_state_pass_f32.argtypes = lib.ssd_state_pass_sm90.argtypes
+        lib.ssd_chunk_scan_f32.argtypes = [_P, _P, _P, _P, _P, _P, _P,    # x B C cum dt h_in y
+                                           _C, _C, _C, _C, _C, _C, _C,    # b s nh p g n chunk
+                                           _C, _C, _C, _C,                # heads; 16-byte copies
+                                           _L, _L, _L, _L, _L, _L,        # x, dt strides
+                                           _L, _L, _L, _L, _L, _L,        # B, C strides
+                                           _L, _L, _L, _P]                # y strides, stream
     return lib
 
 
@@ -119,12 +146,13 @@ def tma_aligned(*tensors: torch.Tensor) -> bool:
 
 def variant(dtype: torch.dtype, p: int, n: int, chunk: int, aligned: bool = True) -> str:
     """The kernel that takes (dtype, head dim, d_state, chunk) on the card;
-    ``aligned`` is :func:`tma_aligned` of x, B and C. ``sm90`` for bf16 at
-    p in ``SM90_P``, n in ``SM90_N`` (16: jamba's SSM layers; 64, 128:
-    mamba2's) and chunk in ``SM90_CHUNKS`` when aligned; ``simt`` for the
-    rest, float32 at any of those shapes included."""
-    if (dtype == torch.bfloat16 and p in SM90_P and n in SM90_N and chunk in SM90_CHUNKS
-            and aligned):
+    ``aligned`` is :func:`tma_aligned` of x, B and C. ``tf32x3`` for float32
+    at every shape; ``sm90`` for bf16 at p in ``SM90_P``, n in ``SM90_N``
+    (16: jamba's SSM layers; 64, 128: mamba2's) and chunk in
+    ``SM90_CHUNKS`` when aligned; ``simt`` for the rest of bf16."""
+    if dtype == torch.float32:
+        return "tf32x3"
+    if p in SM90_P and n in SM90_N and chunk in SM90_CHUNKS and aligned:
         return "sm90"
     return "simt"
 
@@ -142,15 +170,52 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _sm90_check(x, B, C, chunk) -> None:
+def _pass_kind(x, B, C, chunk) -> str:
+    """The variant whose passes take x, B, C on the card: ``sm90`` (bf16 at
+    its shapes) or ``tf32x3`` (float32); raises for the rest."""
     b, s, nh, p = x.shape
-    if variant(x.dtype, p, B.shape[3], chunk, tma_aligned(x, B, C)) != "sm90" or (
-            B.dtype != x.dtype or C.dtype != x.dtype):
-        raise ValueError(f"the sm90 passes take bf16 x, B, C at p {SM90_P}, n {SM90_N}, "
-                         f"chunk {SM90_CHUNKS}, TMA-aligned; not {x.dtype}, p={p}, "
-                         f"n={B.shape[3]}, chunk={chunk}")
+    n = B.shape[3]
+    if B.dtype != x.dtype or C.dtype != x.dtype:
+        raise ValueError(f"x, B, C in one dtype, not {x.dtype}, {B.dtype}, {C.dtype}")
+    if x.dtype == torch.float32:
+        if (p not in SUPPORTED_P or n > MAX_N or chunk > MAX_CHUNK
+                or any(t.stride(-1) != 1 for t in (x, B, C))):
+            raise ValueError(f"the tf32x3 passes take float32 x, B, C at p {SUPPORTED_P}, "
+                             f"n <= {MAX_N}, chunk <= {MAX_CHUNK}, unit stride last; not "
+                             f"p={p}, n={n}, chunk={chunk}")
+        kind = "tf32x3"
+    elif variant(x.dtype, p, n, chunk, tma_aligned(x, B, C)) == "sm90":
+        kind = "sm90"
+    else:
+        raise ValueError(f"the pass kernels take bf16 x, B, C on sm90 (p {SM90_P}, n {SM90_N}, "
+                         f"chunk {SM90_CHUNKS}, TMA-aligned) or float32 on tf32x3; not "
+                         f"{x.dtype}, p={p}, n={n}, chunk={chunk}")
     if s % chunk:
         raise ValueError(f"sequence length {s} is not a multiple of chunk {chunk}")
+    return kind
+
+
+def _vec(*tensors: torch.Tensor) -> bool:
+    """True if the tf32x3 passes may copy every float32 tensor in 16-byte
+    pieces: a 16-byte aligned start, unit stride last, and the last dim and
+    the other strides multiples of 4 elements."""
+    return all(t.data_ptr() % 16 == 0 and t.stride(-1) == 1 and t.shape[-1] % 4 == 0
+               and all(st % 4 == 0 for st in t.stride()[:-1]) for t in tensors)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _f32_scan_heads(nh: int, g: int, tiles: int, device: torch.device) -> int:
+    """Heads per block of the tf32x3 pass 3: the largest divisor of the
+    heads per group up to ``F32_SCAN_HEADS`` whose grid (``tiles`` blocks per
+    head tile) still has a block for every SM, else 1."""
+    rep = nh // g
+    sms = _sm_count(device.index or 0)
+    divisors = [d for d in range(min(rep, F32_SCAN_HEADS), 0, -1) if rep % d == 0]
+    return next((d for d in divisors if tiles * (nh // d) >= sms), 1)
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -158,52 +223,85 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 
 def chunk_state(x, dt, A, B, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pass 1: (states (b, s/c, nh, p, n) f32, cum (b, nh, s) f32)."""
+    """Pass 1: (states (b, s/c, nh, p, n) f32, cum (b, nh, s) f32). On the
+    card bf16 runs on sm90, float32 on tf32x3."""
     if x.device.type in _PLAIN_DEVICES:
         return chunk_state_reference(x, dt, A, B, chunk)
-    _sm90_check(x, B, B, chunk)
+    kind = _pass_kind(x, B, B, chunk)
     b, s, nh, p = x.shape
     g, n = B.shape[2], B.shape[3]
     dt, A = dt.to(torch.float32), _f32(A)
     states = torch.empty((b, s // chunk, nh, p, n), dtype=torch.float32, device=x.device)
     cum = torch.empty((b, nh, s), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        rc = _lib().ssd_chunk_state_sm90(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), states.data_ptr(),
-            cum.data_ptr(), b, s, nh, g, n, chunk, _heads(nh // g, STATE_HEADS),
-            *x.stride()[:3], *dt.stride(), *B.stride()[:3], _stream(x))
-    _raise(rc, "sm90 chunk_state")
+        if kind == "sm90":
+            rc = _lib().ssd_chunk_state_sm90(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), states.data_ptr(),
+                cum.data_ptr(), b, s, nh, g, n, chunk, _heads(nh // g, STATE_HEADS),
+                *x.stride()[:3], *dt.stride(), *B.stride()[:3], _stream(x))
+        else:
+            rc = _lib().ssd_chunk_state_f32(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), states.data_ptr(),
+                cum.data_ptr(), b, s, nh, p, g, n, chunk, int(_vec(x)), int(_vec(B)),
+                *x.stride()[:3], *dt.stride(), *B.stride()[:3], _stream(x))
+    _raise(rc, f"{kind} chunk_state")
     return states, cum
 
 
-def state_pass(states, cum, chunk: int, init_state=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def state_pass(states, cum, chunk: int, init_state=None,
+               dtype: torch.dtype = torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pass 2: (h_in, final). On the card h_in, the state at each chunk's
-    start, comes back in bf16 (pass 3's operand type)."""
+    start, comes back in ``dtype``, the operand type of the pass 3 that reads
+    it: bf16 (sm90) or float32 (tf32x3)."""
     if states.device.type in _PLAIN_DEVICES:
         return state_pass_reference(states, cum, chunk, init_state)
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"starting states in bf16 (sm90) or float32 (tf32x3), not {dtype}")
+    return _state_pass(states, cum, chunk, init_state,
+                       torch.empty(states.shape, dtype=dtype, device=states.device))
+
+
+def _state_pass(states, cum, chunk: int, init_state, h_in) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass 2 into ``h_in`` (bf16: sm90's kernel; float32: tf32x3's, which
+    may write over ``states`` itself)."""
     b, l, nh, p, n = states.shape
     if cum.shape != (b, nh, l * chunk):
         raise ValueError(f"cum {tuple(cum.shape)}, want {(b, nh, l * chunk)}")
     states, cum = _f32(states), _f32(cum)
     init = None if init_state is None else _f32(init_state)
-    h_in = torch.empty(states.shape, dtype=torch.bfloat16, device=states.device)
     final = torch.empty((b, nh, p, n), dtype=torch.float32, device=states.device)
+    kind = "tf32x3" if h_in.dtype == torch.float32 else "sm90"
+    fn = _lib().ssd_state_pass_f32 if kind == "tf32x3" else _lib().ssd_state_pass_sm90
     with torch.cuda.device(states.device):
-        rc = _lib().ssd_state_pass_sm90(
-            states.data_ptr(), cum.data_ptr(), None if init is None else init.data_ptr(),
-            h_in.data_ptr(), final.data_ptr(), b, l * chunk, nh, p * n, chunk, _stream(states))
-    _raise(rc, "sm90 state_pass")
+        rc = fn(states.data_ptr(), cum.data_ptr(), None if init is None else init.data_ptr(),
+                h_in.data_ptr(), final.data_ptr(), b, l * chunk, nh, p * n, chunk,
+                _stream(states))
+    _raise(rc, f"{kind} state_pass")
     return h_in, final
 
 
 def chunk_scan(x, dt, B, C, cum, h_in, chunk: int) -> torch.Tensor:
-    """Pass 3: y (b, s, nh, p) in x's dtype. On the card h_in is rounded to
-    bf16 first (a no-op for pass 2's output)."""
+    """Pass 3: y (b, s, nh, p) in x's dtype. On the card h_in is taken in
+    the kernel's operand type: rounded to bf16 for sm90 (a no-op for pass
+    2's output), float32 for tf32x3."""
     if x.device.type in _PLAIN_DEVICES:
         return chunk_scan_reference(x, dt, B, C, cum, h_in, chunk)
-    _sm90_check(x, B, C, chunk)
+    kind = _pass_kind(x, B, C, chunk)
     b, s, nh, p = x.shape
     g, n = B.shape[2], B.shape[3]
+    if kind == "tf32x3":
+        dt, cum, h_in = dt.to(torch.float32), _f32(cum), _f32(h_in)
+        y = torch.empty((b, s, nh, p), dtype=torch.float32, device=x.device)
+        tiles = b * (s // chunk) * -(-chunk // 64)
+        with torch.cuda.device(x.device):
+            rc = _lib().ssd_chunk_scan_f32(
+                x.data_ptr(), B.data_ptr(), C.data_ptr(), cum.data_ptr(), dt.data_ptr(),
+                h_in.data_ptr(), y.data_ptr(), b, s, nh, p, g, n, chunk,
+                _f32_scan_heads(nh, g, tiles, x.device), int(_vec(x)), int(_vec(B, C)),
+                int(_vec(h_in)), *x.stride()[:3], *dt.stride(), *B.stride()[:3],
+                *C.stride()[:3], *y.stride()[:3], _stream(x))
+        _raise(rc, "tf32x3 chunk_scan")
+        return y
     # the kernel copies each head's dt over a chunk in one piece: (b, nh, s)
     dtT = dt.to(torch.float32).transpose(1, 2).contiguous()
     cum, h_in = _f32(cum), h_in.to(torch.bfloat16).contiguous()
@@ -255,6 +353,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         states, cum = chunk_state(x, dt, A, B, c)
         h_in, state = state_pass(states, cum, c, init_state)
         del states
+        y = chunk_scan(x, dt, B, C, cum, h_in, c)
+    elif kind == "tf32x3":
+        states, cum = chunk_state(x, dt, A, B, c)
+        # the float32 starting states written over the chunk states, in place
+        h_in, state = _state_pass(states, cum, c, init_state, states)
         y = chunk_scan(x, dt, B, C, cum, h_in, c)
     else:
         y = torch.empty((b, s, nh, p), dtype=x.dtype, device=x.device)

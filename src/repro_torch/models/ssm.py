@@ -6,8 +6,9 @@ algorithm in three passes (:func:`chunk_state`, :func:`state_pass`,
 by an in-order loop over chunks (the reference's ``lax.scan``), then the
 outputs, intra-chunk terms as dense (c x c) products. Decode is the O(1)
 recurrent step. The hand-written kernels in ``repro_torch.kernels.ssd_scan``
-compute the same scan (the ``sm90`` one in the same three passes);
-:func:`ssd_chunked` is their plain version (``kernels/ssd_scan/ref.py``).
+compute the same scan (the ``sm90`` and ``tf32x3`` ones in the same three
+passes); :func:`ssd_chunked` is their plain version
+(``kernels/ssd_scan/ref.py``).
 
 ``ssm_forward(..., use_kernel=True)`` sends the scan to the kernel (the
 reference's ``use_pallas``); the model passes it for ``attn_impl="kernel"``,

@@ -148,6 +148,7 @@ def test_build_names_libraries_by_source_and_needs_nvcc():
                                       "flash_attention_sm90.cu"]
     assert _build.headers("flash_attention") == [
         _build.shared_include() / "hopper.cuh",
+        _build.shared_include() / "tf32x3.cuh",
         _build.KERNELS_DIR / "flash_attention" / "csrc" / "fa_tiles.cuh"]
     lib = _build.library_path("flash_attention")
     assert lib.parent == _build.BUILD_DIR and lib == _build.library_path("flash_attention")

@@ -163,9 +163,12 @@ def test_wrapper_rejects_bad_inputs(bad):
 
 def test_build_lists_the_kernel_and_names_its_library_by_source():
     assert "ssd_scan" in _build.KERNELS
-    assert [p.name for p in _build.sources("ssd_scan")] == ["ssd_scan.cu", "ssd_scan_sm90.cu"]
-    # the shared Hopper header is hashed into the name (and reaches nvcc by -I)
+    assert [p.name for p in _build.sources("ssd_scan")] == [
+        "ssd_scan.cu", "ssd_scan_f32_sm90.cu", "ssd_scan_sm90.cu"]
+    # the shared Hopper and TF32x3 headers are hashed into the name (and
+    # reach nvcc by -I)
     assert _build.shared_include() / "hopper.cuh" in _build.headers("ssd_scan")
+    assert _build.shared_include() / "tf32x3.cuh" in _build.headers("ssd_scan")
     lib = _build.library_path("ssd_scan")
     assert lib.parent == _build.BUILD_DIR and lib.name.startswith("libssd_scan-")
 
