@@ -7,11 +7,10 @@ Needs one CUDA card (Hopper: the kernels are built for sm_90a). It builds the
 port's kernels (flash attention, blockwise int8 quantise / dequantise, the
 SSD chunked scan) from the sources in this checkout into ``build/``, one nvcc
 per kernel package, and holds each kernel against its plain PyTorch version
-on the card. Flash attention has three kernels, chosen by dtype and head
-dim (``ops.variant``): ``sm90`` on the tensor cores for bf16 at D 64 and
-128, ``tf32x3`` on the tensor cores for float32 at every head dim (three
-TF32 products a product), ``simt`` on the CUDA cores for bf16 at D 16 and
-32 (16 is every reduced config's head dim); each case runs the one the
+on the card. Flash attention has two kernels, chosen by dtype
+(``ops.variant``), both on the tensor cores at every head dim (16, 32, 64,
+128): ``sm90`` for bf16 (16 is every reduced config's head dim), ``tf32x3``
+for float32 (three TF32 products a product); each case runs the one the
 table names. Then it drives the port's main paths with seeded
 random weights:
 
@@ -59,7 +58,7 @@ random weights:
   deterministic mode; the group is destroyed before any phase spawns ranks;
 * the four examples (``examples/torch_*.py``) in-process on the card: the
   serve demo's reduced llama3, mamba2 and deepseek-v3 (llama3's attention
-  at head dim 16 on ``simt``, mamba2's scan on the ``simt`` SSD kernel in
+  at head dim 16 on ``sm90``, mamba2's scan on the ``simt`` SSD kernel in
   bf16, counted), reduced llama3's prefill logits kernel against plain, the
   quickstart's restore of step 30 (byte for byte) and resume to 40, the
   anomaly demo's table, and the fault-tolerant example on the modelled
@@ -136,12 +135,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores and HBM3,
-# defined once in the port's launch/mesh.py
+# H100 SXM peaks (NVIDIA data sheet, dense): tensor cores, CUDA cores, HBM3
+# and the SFU's exponentials, defined once in the port's launch/mesh.py
 from repro_torch.launch.mesh import H100_HBM_BYTES_S as PEAK_BYTES_S  # noqa: E402
 from repro_torch.launch.mesh import H100_PEAK_BF16_FLOPS as PEAK_BF16_FLOPS  # noqa: E402
 from repro_torch.launch.mesh import H100_PEAK_F32_FLOPS as PEAK_F32_FLOPS  # noqa: E402
 from repro_torch.launch.mesh import H100_PEAK_TF32_FLOPS as PEAK_TF32_FLOPS  # noqa: E402
+from repro_torch.launch.mesh import H100_SFU_OPS as SFU_OPS  # noqa: E402
 
 # The main path: llama3-8b serving, one wave of 8 requests x 1024-token
 # prompts, 32 generated tokens.
@@ -149,9 +149,10 @@ ARCH, REQUESTS, PROMPT_LEN, GEN, SEED = "llama3-8b", 8, 1024, 32, 0
 
 # Kernel vs plain tolerances. f32: the same arithmetic in another summation
 # order (the tf32x3 kernels, flash attention's and the SSD scan's, also leave
-# out the lo * lo term of their hi / lo split, below 2^-20 relative). bf16: the plain version rounds the normalised softmax weights to
-# bf16 before P.V, the sm90 kernel the unnormalised ones, the simt kernel
-# none (the reference tests' bf16 tolerance).
+# out the lo * lo term of their hi / lo split, below 2^-20 relative). bf16:
+# the plain version rounds the normalised softmax weights to bf16 before
+# P.V, the sm90 kernel the unnormalised ones (the reference tests' bf16
+# tolerance; tests/test_torch_fa_bf16.py models the kernel's rounding).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2.5e-2}
 # Prefill last-token logits, kernel vs plain, bf16 through 32 layers: every
 # layer's attention output differs by ~one bf16 rounding (eps 2^-8) and the
@@ -263,8 +264,8 @@ SSD_F32_HEADS = (4, 24)
 # self-attention; cross attention, 384 decoder rows against 1,500 encoder
 # rows; 6 heads at D 64: sm90), qwen2-vl-2b's (GQA rep 6 at D 128: sm90),
 # S != T in float32 (whisper's f32 decode check: tf32x3), and D 16, the
-# reduced configs' head dim (causal GQA and ragged: tf32x3 in float32, simt
-# in bf16). Every float32 case runs on tf32x3.
+# reduced configs' head dim (causal GQA and ragged: tf32x3 in float32, sm90
+# in bf16). Every float32 case runs on tf32x3, every bf16 case on sm90.
 FA_CASES = [
     (2, 128, 128, 4, 2, 64, True, torch.float32),
     (1, 256, 256, 8, 8, 64, True, torch.float32),
@@ -306,10 +307,12 @@ FA_RATE_CASES = [MAIN_FA[:6] + (False, torch.bfloat16),
 # not.
 FA_RATE_CASES_F32 = [(2, 4096, 4096, 32, 8, 128, True, torch.float32),
                      (2, 4096, 4096, 32, 8, 128, False, torch.float32)]
-# The simt kernel (bf16 at D 16 and 32) against SDPA at a shape that is not
-# launch-bound: the main path's 8 x 1024, causal, GQA 32 / 8.
-FA_RATE_CASES_SIMT = [(REQUESTS, PROMPT_LEN, PROMPT_LEN, 32, 8, d, True, torch.bfloat16)
-                      for d in (16, 32)]
+# The sm90 kernel at small head dims (bf16 at D 16 and 32, paced by the
+# exponentials) against SDPA at a shape that is not launch-bound: the main
+# path's 8 x 1024, causal, GQA 32 / 8; and at D 16 at 4x the sequence, to
+# tell the per-q-tile cost from the rate of the inner loop.
+FA_RATE_CASES_SMALL_D = [(REQUESTS, PROMPT_LEN, PROMPT_LEN, 32, 8, d, True, torch.bfloat16)
+                         for d in (16, 32)] + [(2, 4096, 4096, 32, 8, 16, True, torch.bfloat16)]
 FA_SRC = "src/repro_torch/kernels/flash_attention/csrc/"
 FA_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:25"
 
@@ -418,18 +421,24 @@ def fa_inputs(case, seed):
 
 
 def fa_bound(case):
-    """Least time (s) for the work: operations this run's mask keeps, and
-    bytes of q, k, v read once and o written once. bf16 products run on the
-    tensor cores at the bf16 peak; float32 ones on the tf32x3 kernel, as
-    three TF32 products each at the TF32 peak. ``flops`` is the function's
-    own count (one product each)."""
+    """Least time (s) for the work: the largest of three terms, which
+    ``bound_by`` names. ``operations``: the products this run's mask keeps,
+    bf16 ones on the tensor cores at the bf16 peak, float32 ones on the
+    tf32x3 kernel as three TF32 products each at the TF32 peak;
+    ``exponentials``: one per kept (q, k) pair on the SFU
+    (``H100_SFU_OPS``), which paces attention at small head dims; ``bytes``:
+    q, k, v read once and o written once. ``flops`` is the function's own
+    count (one product each)."""
     b, s, t, h, kh, d, causal, dt = case
     pairs = sum(min(i + 1, t) for i in range(s)) if causal else s * t
     flops = 2 * 2 * b * h * d * pairs
     nbytes = (2 * b * s * h * d + 2 * b * t * kh * d) * torch.tensor([], dtype=dt).element_size()
-    t_ops = flops / PEAK_BF16_FLOPS if dt == torch.bfloat16 else 3 * flops / PEAK_TF32_FLOPS
-    t_bytes = nbytes / PEAK_BYTES_S
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+    terms = {"operations": (flops / PEAK_BF16_FLOPS if dt == torch.bfloat16
+                            else 3 * flops / PEAK_TF32_FLOPS),
+             "exponentials": b * h * pairs / SFU_OPS,
+             "bytes": nbytes / PEAK_BYTES_S}
+    bound_by = max(terms, key=terms.get)
+    return terms[bound_by], bound_by, flops, nbytes
 
 
 def quant_bound(n: int, block: int, quantise: bool):
@@ -489,9 +498,13 @@ def phase_device():
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
+    # the maximum SM clock, against which H100_SFU_OPS is counted (1,980 MHz)
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                           capture_output=True, text=True, timeout=60).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    emit({"phase": "device", "nvidia_smi": card, "name": torch.cuda.get_device_name(0),
+    emit({"phase": "device", "nvidia_smi": card, "sm_clock_max": clock,
+          "name": torch.cuda.get_device_name(0),
           "capability": list(torch.cuda.get_device_capability(0)),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
@@ -537,9 +550,9 @@ def sdpa_call(q, k, v, causal):
 
 def phase_kernel(fa_ops, fa_ref):
     """Every case on the kernel the variant table names, against the plain
-    version; then each tensor-core kernel's times at its main shape (sm90:
-    MAIN_FA, tf32x3: MAIN_FA_F32; simt's are the examples phase's, at the
-    D-16 shape it serves)."""
+    version; then each kernel's times at its main shape (sm90: MAIN_FA,
+    tf32x3: MAIN_FA_F32), and the rate cases against SDPA (sm90 at small
+    head dims with its plain version's time and its error too)."""
     rows = []
     for i, case in enumerate(FA_CASES + [MAIN_FA, MAIN_FA_F32]):
         b, s, t, h, kh, d, causal, dt = case
@@ -581,8 +594,9 @@ def phase_kernel(fa_ops, fa_ref):
             "max_abs_err": row["max_abs_err"]}
         emit(timings[kind])
 
-    for kind, cases, seed in (("sm90", FA_RATE_CASES, 300), ("tf32x3", FA_RATE_CASES_F32, 310),
-                              ("simt", FA_RATE_CASES_SIMT, 320)):
+    for group, kind, cases, seed in (("main", "sm90", FA_RATE_CASES, 300),
+                                     ("main", "tf32x3", FA_RATE_CASES_F32, 310),
+                                     ("small_d", "sm90", FA_RATE_CASES_SMALL_D, 320)):
         rates = []
         for i, case in enumerate(cases):
             causal = case[6]
@@ -595,19 +609,21 @@ def phase_kernel(fa_ops, fa_ref):
                           "library_ms": library_ms, "bound_ms": bound_s * 1e3,
                           "bound_by": bound_by, "kernel_tflops": flops / kernel_ms / 1e9,
                           "library_tflops": flops / library_ms / 1e9})
-            if kind == "simt":
-                # the CUDA-core kernel's error and its plain version's time here
+            if group == "small_d":
+                # the kernel's error and its plain version's time here
                 rates[-1]["plain_ms"] = time_ms(
                     lambda: fa_ref.attention_reference(q, k, v, causal=causal))
                 rates[-1]["max_abs_err"] = float(
                     (fa_ops.flash_attention(q, k, v, causal=causal).float()
                      - fa_ref.attention_reference(q, k, v, causal=causal).float()).abs().max())
                 check(rates[-1]["max_abs_err"] <= TOL[torch.bfloat16],
-                      f"simt at {case}: {rates[-1]['max_abs_err']}")
+                      f"sm90 at {case}: {rates[-1]['max_abs_err']}")
             del q, k, v
-        emit({"phase": "kernel_rates", "variant": kind,
+        emit({"phase": "kernel_rates", "variant": kind, "group": group,
               "dtype": str(cases[0][7]).split(".")[1],
               "library": "scaled_dot_product_attention (GQA expanded)", "cases": rates})
+        if group == "small_d":
+            timings["sm90_small_d"] = rates
     return timings
 
 
@@ -2716,7 +2732,7 @@ def phase_examples(kernels, engine, fa_ref):
 
     * the serve demo, one ``main([arch])`` per reduced arch, its launches
       counted by variant against ``layer_counts``: llama3's prefill attention
-      at head dim 16 on ``simt`` (2 layers), mamba2's scan on the ``simt`` SSD
+      at head dim 16 on ``sm90`` (2 layers), mamba2's scan on the ``simt`` SSD
       kernel (p 16, n 16, chunk 32 are no sm90 shape; 2 layers), deepseek-v3's
       MLA on no kernel; then reduced llama's prefill logits, kernel against
       plain, and the D-16 kernel timed at that prefill's attention shape;
@@ -2746,12 +2762,14 @@ def phase_examples(kernels, engine, fa_ref):
         check(tuple(toks.shape) == (demo.BATCH, demo.STEPS), f"{arch}: tokens {tuple(toks.shape)}")
         check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), f"{arch}: token out of range")
         counts = layer_counts(cfg)
-        want = {k: {v: counts[k] if v == "simt" else 0 for v in ops.LAUNCHES_BY_VARIANT}
+        # the variant each kernel takes at the reduced configs' shapes
+        demo_variant = {"fa": "sm90", "ssd": "simt"}
+        want = {k: {v: counts[k] if v == demo_variant[k] else 0 for v in ops.LAUNCHES_BY_VARIANT}
                 for k, ops in kernels.items()}
         check(by_variant == want, f"{arch}: launches {by_variant}, want {want}")
         serve[arch] = {"launches_by_variant": by_variant, "seconds": res["seconds"],
                        "sample": res["tokens"][0][:8]}
-    check([serve[a]["launches_by_variant"]["fa"]["simt"] for a in demo.ARCHS] == [2, 0, 0]
+    check([serve[a]["launches_by_variant"]["fa"]["sm90"] for a in demo.ARCHS] == [2, 0, 0]
           and [serve[a]["launches_by_variant"]["ssd"]["simt"] for a in demo.ARCHS] == [0, 2, 0],
           f"serve demo launches {serve}")
 
@@ -2768,13 +2786,13 @@ def phase_examples(kernels, engine, fa_ref):
     case = (demo.BATCH, demo.PROMPT, demo.PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
             True, torch.bfloat16)
     q, k, v = fa_inputs(case, seed=11)
-    check(fa_ops.variant(q.dtype, cfg.d_head) == "simt", "D 16 is not on simt")
+    check(fa_ops.variant(q.dtype, cfg.d_head) == "sm90", "D 16 is not on sm90")
     err = float((fa_ops.flash_attention(q, k, v).float()
                  - fa_ref.attention_reference(q, k, v).float()).abs().max())
     check(err <= TOL[torch.bfloat16], f"D 16 kernel vs plain: {err}")
     bound_s, bound_by, _, _ = fa_bound(case)
     d16 = {"shape": list(case[:6]), "dtype": "bfloat16", "causal": True,
-           "ms": time_ms(lambda: fa_ops.flash_attention(q, k, v)),
+           "kernel_ms": time_ms(lambda: fa_ops.flash_attention(q, k, v)),
            "plain_ms": time_ms(lambda: fa_ref.attention_reference(q, k, v)),
            "library_ms": time_ms(sdpa_call(q, k, v, True)),
            "bound_ms": bound_s * 1e3, "bound_by": bound_by, "max_abs_err": err}
@@ -2800,7 +2818,7 @@ def phase_examples(kernels, engine, fa_ref):
     out = {"phase": "examples", "serve_demo": serve,
            "llama_prefill": {"logits_max_abs_diff": diff, "logits_scale": scale,
                              "logits_rel_tol": LOGITS_REL_TOL},
-           "fa_simt_d16": d16,
+           "fa_sm90_d16": d16,
            "quickstart": {k: qs[k] for k in ("n_params", "save_losses", "restored_step",
                                              "restore_sources", "restored_bit_exact",
                                              "resumed_step", "resumed_losses")},
@@ -2922,28 +2940,26 @@ def main() -> int:
                 "parallel_olmoe_mesh": families["parallel_moe"]["launches"]["fa"],
                 "serve_jamba": families["jamba-v0.1-52b"]["launches"]["fa"],
                 "serve_whisper": families["whisper-tiny"]["launches"]["fa"],
-                "serve_qwen2_vl": families["qwen2-vl-2b"]["launches"]["fa"]}
+                "serve_qwen2_vl": families["qwen2-vl-2b"]["launches"]["fa"],
+                "examples_serve_llama":
+                examples["serve_demo"]["llama3-8b"]["launches_by_variant"]["fa"]["sm90"]}
     # tf32x3: every float32 attention on the card, the decode checks' forward
     # and prefill (llama3-8b and qwen2-vl-2b at 2 layers, whisper-tiny's 4
-    # encoder, 4 decoder and 4 cross attentions); simt: the serve demo's
-    # reduced llama3 prefill, bf16 at D 16, timed at that shape
+    # encoder, 4 decoder and 4 cross attentions)
     f32_paths = {"decode_check_llama": f32_launches,
                  "decode_check_whisper": families["decode_f32_whisper-tiny"],
                  "decode_check_qwen2_vl": families["decode_f32_qwen2-vl-2b"]}
     check(list(f32_paths.values()) == [4, 24, 4], f"float32 decode-check launches {f32_paths}")
-    simt_paths = {"examples_serve_llama":
-                  examples["serve_demo"]["llama3-8b"]["launches_by_variant"]["fa"]["simt"]}
-    d16 = examples["fa_simt_d16"]
-    timing["simt"] = {"kernel_ms": d16["ms"], "plain_ms": d16["plain_ms"],
-                      "library_ms": d16["library_ms"], "bound_ms": d16["bound_ms"],
-                      "bound_by": d16["bound_by"], "roofline_share": d16["bound_ms"] / d16["ms"],
-                      "dtype": d16["dtype"], "max_abs_err": d16["max_abs_err"],
-                      "shape": d16["shape"]}
+    # sm90 beside its main shape: the small head dims (the rate cases at D
+    # 16 and 32 and the serve demo's D-16 prefill shape)
+    small_d = {f"d{c['shape'][5]}_{c['shape'][0]}x{c['shape'][1]}": c
+               for c in timing["sm90_small_d"] + [examples["fa_sm90_d16"]]}
     entries = []
-    for name, kind, src, by_path in (
-            ("flash_attention_fwd", "sm90", "flash_attention_sm90.cu", fa_paths),
-            ("flash_attention_fwd_tf32x3", "tf32x3", "flash_attention_f32_sm90.cu", f32_paths),
-            ("flash_attention_fwd_simt", "simt", "flash_attention.cu", simt_paths)):
+    for name, kind, src, by_path, others in (
+            ("flash_attention_fwd", "sm90", "flash_attention_sm90.cu", fa_paths,
+             {"small_head_dims": small_d}),
+            ("flash_attention_fwd_tf32x3", "tf32x3", "flash_attention_f32_sm90.cu", f32_paths,
+             {})):
         t = timing[kind]
         entries.append({
             "name": name, "route": "cuda", "source": FA_SRC + src, "replaces": FA_REPLACES,
@@ -2955,7 +2971,7 @@ def main() -> int:
             # the head dims each dtype takes on this kernel
             "head_dims": {str(dt).split(".")[1]: [d for d in fa_ops.SUPPORTED_D
                                                   if fa_ops.variant(dt, d) == kind]
-                          for dt in fa_ops._DTYPE_CODE}})
+                          for dt in fa_ops._DTYPE_CODE}, **others})
     for name, line, key, count in (("quantize_blockwise", 18, "quantize", "quant_launches"),
                                    ("dequantize_blockwise", 29, "dequantize", "dequant_launches")):
         t = quant[key]

@@ -5,18 +5,18 @@ model layout, q (B, S, H, D) and k, v (B, T, KH, D). A tensor on the CPU goes
 to the plain version (:func:`ref.attention_reference`), and so does a meta
 tensor (shapes only, for the dry run); a tensor on a CUDA device goes to a
 hand-written kernel, or the call raises. Which kernel is
-fixed by dtype and head dim (:func:`variant`), never by a failure:
+fixed by dtype (:func:`variant`), never by a failure:
 
-* ``"sm90"``: bf16 at D 64 and 128, on the tensor cores (wgmma fed by TMA),
-  ``csrc/flash_attention_sm90.cu``; the serving path;
+* ``"sm90"``: bf16 at D 16, 32, 64 and 128, on the tensor cores (wgmma fed
+  by TMA), ``csrc/flash_attention_sm90.cu``; the serving path, and at D 16
+  every reduced config's;
 * ``"tf32x3"``: float32 at D 16, 32, 64 and 128, on the tensor cores
   (mma.sync fed by TMA), each product as three TF32 products of a hi / lo
-  split, which keeps float32's accuracy, ``csrc/flash_attention_f32_sm90.cu``;
-* ``"simt"``: bf16 at D 16 and 32 (the reduced configs), float32 products on
-  the CUDA cores, ``csrc/flash_attention.cu``.
+  split, which keeps float32's accuracy, ``csrc/flash_attention_f32_sm90.cu``.
 
-All three read the (B, S, H, D) strides directly, so there is no transpose
-copy around them.
+``csrc/flash_attention.cu`` holds the C entry point that hands a call to
+one of the two. Both read the (B, S, H, D) strides directly, so there is no
+transpose copy around them.
 
 ``LAUNCHES`` counts kernel launches (never the CPU path), so that a run can
 show that its main path went through the kernel; ``LAUNCHES_BY_VARIANT``
@@ -34,12 +34,11 @@ from .ref import attention_reference
 # the plain version's devices: the CPU, and meta tensors (shapes only)
 _PLAIN_DEVICES = ("cpu", "meta")
 LAUNCHES = 0
-LAUNCHES_BY_VARIANT = {"sm90": 0, "tf32x3": 0, "simt": 0}
+LAUNCHES_BY_VARIANT = {"sm90": 0, "tf32x3": 0}
 
 SUPPORTED_D = (16, 32, 64, 128)
-SM90_D = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_VARIANT_CODE = {"simt": 0, "sm90": 1, "tf32x3": 2}
+_VARIANT_CODE = {"sm90": 0, "tf32x3": 1}
 _C = ctypes.c_int
 _L = ctypes.c_longlong
 _P = ctypes.c_void_p
@@ -75,10 +74,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def variant(dtype: torch.dtype, d: int) -> str:
-    """The kernel that takes (dtype, head dim) on the card."""
-    if dtype == torch.float32:
-        return "tf32x3"
-    return "sm90" if d in SM90_D else "simt"
+    """The kernel that takes (dtype, head dim) on the card: each dtype has
+    one kernel for every head dim of ``SUPPORTED_D``."""
+    return "tf32x3" if dtype == torch.float32 else "sm90"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

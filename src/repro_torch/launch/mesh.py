@@ -19,6 +19,11 @@ from repro_torch.parallel.sharding import LogicalMesh
 H100_PEAK_BF16_FLOPS = 989e12       # per card, bf16 tensor cores
 H100_PEAK_TF32_FLOPS = 495e12       # per card, TF32 tensor cores
 H100_PEAK_F32_FLOPS = 67e12         # per card, float32 outside the tensor cores
+# per card, exponentials (ex2) on the special-function units: 16 results a
+# clock per SM for compute capability 9.0 (the CUDA C++ Programming Guide's
+# table of arithmetic-instruction throughput), 132 SMs, at the H100 SXM's
+# 1,980 MHz maximum SM clock
+H100_SFU_OPS = 16 * 132 * 1.98e9
 H100_HBM_BYTES_S = 3.35e12          # HBM3 bytes/s per card
 H100_HBM_BYTES = 80e9               # the data sheet's 80 GB
 

@@ -33,8 +33,8 @@ CASE_IDS = [f"s{c[1]}h{c[3]}kh{c[4]}d{c[5]}c{int(c[6])}{c[7]}" for c in FA_CASES
 
 # f32: both sides compute in float32, in another summation order.
 # bf16: the oracles round the normalised softmax weights to bf16 before P.V,
-# the sm90 kernel the unnormalised ones and the simt kernel none (the
-# tolerance of tests/test_kernels.py).
+# the sm90 kernel the unnormalised ones (the tolerance of
+# tests/test_kernels.py).
 TOL = {"float32": 5e-5, "bfloat16": 2.5e-2}
 
 
@@ -116,11 +116,11 @@ def test_wrapper_rejects_bad_inputs(bad):
 
 # The kernel each (dtype, head dim) takes on the card: the TF32 tensor-core
 # kernel for float32 at every head dim, the bf16 tensor-core kernel for bf16
-# at D 64 and 128, the CUDA-core kernel for bf16 at D 16 and 32.
+# at every head dim.
 VARIANT_TABLE = [
-    ("float32", 16, "tf32x3"), ("bfloat16", 16, "simt"),
+    ("float32", 16, "tf32x3"), ("bfloat16", 16, "sm90"),
     ("float32", 32, "tf32x3"), ("float32", 64, "tf32x3"), ("float32", 128, "tf32x3"),
-    ("bfloat16", 32, "simt"), ("bfloat16", 64, "sm90"), ("bfloat16", 128, "sm90"),
+    ("bfloat16", 32, "sm90"), ("bfloat16", 64, "sm90"), ("bfloat16", 128, "sm90"),
 ]
 
 
@@ -132,7 +132,7 @@ def test_variant_table(name, d, want):
 def test_variant_table_covers_every_supported_input():
     assert sorted((n, d) for n, d, _ in VARIANT_TABLE) == sorted(
         (str(t).split(".")[1], d) for t in ops._DTYPE_CODE for d in ops.SUPPORTED_D)
-    assert set(ops.LAUNCHES_BY_VARIANT) == {"sm90", "tf32x3", "simt"} == set(ops._VARIANT_CODE)
+    assert set(ops.LAUNCHES_BY_VARIANT) == {"sm90", "tf32x3"} == set(ops._VARIANT_CODE)
 
 
 def test_cpu_wrapper_counts_no_variant_launch():
@@ -202,9 +202,11 @@ def cuda_device():
 # holding 28, and a last kv tile of 92 columns), decoder self-attention and
 # cross attention (S = 384 decoder rows against T = 1500 encoder rows), and
 # qwen2-vl-2b's GQA at rep 6; S != T in float32 (the tf32x3 kernel: the
-# cross attention of whisper's float32 decode check); and D 16 (the reduced
-# configs' head dim) causal GQA and ragged, in both dtypes. Every float32
-# case runs the tf32x3 kernel.
+# cross attention of whisper's float32 decode check); D 16 (the reduced
+# configs' head dim) causal GQA and ragged, in both dtypes; and for the bf16
+# kernel's 32-byte rows: D 32 causal GQA at a ragged 200, D 16 and D 32 at
+# 1 x 1024 with 32 / 8 heads, D 16 with S != T. Every float32 case runs the
+# tf32x3 kernel, every bf16 case the sm90 kernel.
 CARD_CASES = [c[:8] for c in FA_CASES] + [
     (2, 200, 200, 8, 2, 128, True, "bfloat16"),
     (1, 77, 77, 4, 4, 64, False, "float32"),
@@ -222,6 +224,10 @@ CARD_CASES = [c[:8] for c in FA_CASES] + [
 ] + [c[:8] for c in D16_CASES] + [
     (1, 200, 200, 4, 4, 16, False, "float32"),
     (1, 200, 200, 4, 4, 16, False, "bfloat16"),
+    (2, 200, 200, 8, 2, 32, True, "bfloat16"),
+    (1, 1024, 1024, 32, 8, 16, True, "bfloat16"),
+    (1, 1024, 1024, 32, 8, 32, True, "bfloat16"),
+    (1, 17, 300, 4, 2, 16, False, "bfloat16"),
 ]
 
 
