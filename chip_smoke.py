@@ -58,7 +58,7 @@ random weights:
   deterministic mode; the group is destroyed before any phase spawns ranks;
 * the four examples (``examples/torch_*.py``) in-process on the card: the
   serve demo's reduced llama3, mamba2 and deepseek-v3 (llama3's attention
-  at head dim 16 on ``sm90``, mamba2's scan on the ``simt`` SSD kernel in
+  at head dim 16 on ``sm90``, mamba2's scan on the ``mma`` SSD kernel in
   bf16, counted), reduced llama3's prefill logits kernel against plain, the
   quickstart's restore of step 30 (byte for byte) and resume to 40, the
   anomaly demo's table, and the fault-tolerant example on the modelled
@@ -217,7 +217,7 @@ MLA_CHECK_BATCH, MLA_CHECK_SEQ = 2, 256
 # heads: sm90), then the main path's shape in bf16 (sm90) and float32
 # (tf32x3); x, B, C are views into one conv output, as the model passes
 # them. Each case runs on the kernel ops.variant names: every float32 case
-# on tf32x3, the bf16 ones on sm90 or simt.
+# on tf32x3, the bf16 ones on sm90 or mma.
 SSD_CASES = [
     (2, 128, 8, 32, 1, 16, 64, torch.float32),
     (1, 256, 4, 16, 2, 8, 32, torch.float32),
@@ -236,6 +236,9 @@ SSD_CASES = [
 JAMBA_SSD = SSD_CASES[-1]
 MAIN_SSD = (SSM_REQUESTS, SSM_PROMPT_LEN, 24, 64, 1, 128, 256, torch.bfloat16)
 MAIN_SSD_F32 = MAIN_SSD[:7] + (torch.float32,)
+# The serve demo's reduced mamba2 scan (examples/torch_serve_demo.py: 4 x 32
+# tokens, 8 heads of p 16, n 16, chunks of 32): no sm90 shape, on mma.
+DEMO_SSD = (4, 32, 8, 16, 1, 16, 32, torch.bfloat16)
 # The tf32x3 kernel beside MAIN_SSD_F32: the float32 prefill check's shape
 # (2 x 1024, 4 chunks) and jamba's float32 decode check's forward (2 x 17,
 # 128 heads at n 16, one ragged chunk of 17).
@@ -1251,14 +1254,17 @@ def phase_f32_prefill_check(engine, model_mod, ops, arch, variant):
     return launches
 
 
-def ssd_inputs(case, seed, pad=0):
+def ssd_inputs(case, seed, pad=0, start=0):
     """x, dt, A, B, C for a case: x, B and C as views into one (b, s, conv_dim)
     tensor, as the model hands them to the kernel; ``pad`` columns more a row
-    (4 makes bf16 rows a multiple of 8 bytes, not 16, which TMA cannot read)."""
+    (4 makes bf16 rows a multiple of 8 bytes, not 16, which TMA cannot read),
+    the views starting ``start`` columns in (1: an odd bf16 offset, which only
+    2-byte loads can read)."""
     b, s, nh, p, g, n, chunk, dt = case
     gen = torch.Generator(device="cuda").manual_seed(seed)
     d_in = nh * p
-    xbc = (torch.randn(b, s, d_in + 2 * g * n + pad, generator=gen, device="cuda") * 0.5).to(dt)
+    xbc = (torch.randn(b, s, start + d_in + 2 * g * n + pad, generator=gen, device="cuda")
+           * 0.5).to(dt)[..., start:]
     x = xbc[..., :d_in].reshape(b, s, nh, p)
     B = xbc[..., d_in:d_in + g * n].reshape(b, s, g, n)
     C = xbc[..., d_in + g * n:d_in + 2 * g * n].reshape(b, s, g, n)
@@ -1286,14 +1292,15 @@ def ssd_bound(case):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
 
 
-def ssd_pass_bound(name, case):
-    """Least time (s) for one pass of the sm90 (bf16) or tf32x3 (float32)
-    kernel at ``case``: what the pass must read and write (each once) and its
-    products, at the peak for their type (float32: three TF32 products each
-    at the TF32 peak). chunk_state: x, B, dt, A in; the f32 chunk states and
-    cum (b, nh, s) out; (x w)^T B. state_pass: the chunk states and cum_last
-    in, the starting states (bf16 for sm90, float32 for tf32x3) and the final
-    state out; a multiply-add a value a chunk (float32, CUDA cores).
+def ssd_pass_bound(name, case, kind):
+    """Least time (s) for one pass of the ``kind`` kernel (sm90 or mma for
+    bf16, tf32x3 for float32) at ``case``: what the pass must read and write
+    (each once) and its products, at the peak for their type (bf16: one
+    product each at the bf16 peak; float32: three TF32 products each at the
+    TF32 peak). chunk_state: x, B, dt, A in; the f32 chunk states and cum
+    (b, nh, s) out; (x w)^T B. state_pass: the chunk states and cum_last in,
+    the starting states (bf16 for sm90, float32 for tf32x3 and mma) and the
+    final state out; a multiply-add a value a chunk (float32, CUDA cores).
     chunk_scan: x, B, C, cum, dt and the starting states in, y out; C.B^T once
     per group and its product with x on the causal half, and the inter-chunk
     term."""
@@ -1304,7 +1311,7 @@ def ssd_pass_bound(name, case):
     states = b * l * nh * p * n
     # the tensor-core products: bf16 at its peak, float32 three TF32 products
     peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_TF32_FLOPS / 3
-    h_elt = 2 if dt == torch.bfloat16 else 4
+    h_elt = 2 if kind == "sm90" else 4
     if name == "chunk_state":
         nbytes = (b * s * nh * p + b * s * g * n) * elt + 4 * (b * s * nh + nh) + 4 * states \
             + 4 * b * nh * s
@@ -1321,12 +1328,14 @@ def ssd_pass_bound(name, case):
 
 
 def ssd_pass_times(ssd_ops, case, x, dtv, A, B, C):
-    """Each pass of the sm90 (bf16) or tf32x3 (float32) kernel alone at
-    ``case`` (through its wrapper, as ``ssd_scan`` calls it), beside its own
-    bound. tf32x3's pass 2 is timed into a buffer of its own (``ssd_scan``
-    writes it over the chunk states)."""
+    """Each pass of the kernel that takes ``case`` in these views (sm90 or
+    mma for bf16, tf32x3 for float32) alone (through its wrapper, as
+    ``ssd_scan`` calls it), beside its own bound. The float32 pass 2 of
+    tf32x3 and mma is timed into a buffer of its own (``ssd_scan`` writes it
+    over the chunk states)."""
     c = min(case[6], case[1])
-    h_dtype = torch.bfloat16 if case[7] == torch.bfloat16 else torch.float32
+    kind = ssd_ops.variant(case[7], case[3], case[5], c, ssd_ops.tma_aligned(x, B, C))
+    h_dtype = torch.bfloat16 if kind == "sm90" else torch.float32
     states, cum = ssd_ops.chunk_state(x, dtv, A, B, c)
     h_in, _ = ssd_ops.state_pass(states, cum, c, None, dtype=h_dtype)
     out = {}
@@ -1335,31 +1344,33 @@ def ssd_pass_times(ssd_ops, case, x, dtv, A, B, C):
                                                                dtype=h_dtype)),
                      ("chunk_scan", lambda: ssd_ops.chunk_scan(x, dtv, B, C, cum, h_in, c))):
         ms = time_ms(fn)
-        bound_s, bound_by = ssd_pass_bound(name, case)
+        bound_s, bound_by = ssd_pass_bound(name, case, kind)
         out[name] = {"ms": ms, "bound_ms": bound_s * 1e3, "bound_by": bound_by,
                      "roofline_share": bound_s * 1e3 / ms}
     return out
 
 
-def ssd_passes_vs_plain(ssd_ops, ssd_ref, case):
-    """Each pass of the kernel ``case``'s dtype takes (sm90 for bf16, tf32x3
-    for float32) against its own plain pass: chunk states and cum from the
-    same inputs, the starting states from an init state, the outputs from the
-    same starting states (rounded to bf16 for sm90). Returns the kernel."""
-    x, dtv, A, B, C = ssd_inputs(case, seed=9)
+def ssd_passes_vs_plain(ssd_ops, ssd_ref, case, pad=0):
+    """Each pass of the kernel that takes ``case`` in views padded by ``pad``
+    (``ssd_inputs``: sm90 or mma for bf16, tf32x3 for float32) against its
+    own plain pass: chunk states and cum from the same inputs, the starting
+    states from an init state, the outputs from the same starting states
+    (rounded to bf16 for sm90). Returns the kernel."""
+    x, dtv, A, B, C = ssd_inputs(case, seed=9, pad=pad)
     b, s, nh, p, g, n, c, dt = case
     c = min(c, s)
-    kind = "sm90" if dt == torch.bfloat16 else "tf32x3"
+    kind = ssd_ops.variant(dt, p, n, c, ssd_ops.tma_aligned(x, B, C))
+    h_dtype = torch.bfloat16 if kind == "sm90" else torch.float32
     init = torch.randn(b, nh, p, n, device="cuda",
                        generator=torch.Generator(device="cuda").manual_seed(10))
     tol = SSD_STATE_TOL[dt]
     states, cum = ssd_ops.chunk_state(x, dtv, A, B, c)
     w_states, w_cum = ssd_ref.chunk_state_reference(x, dtv, A, B, c)
-    h_in, final = ssd_ops.state_pass(w_states, w_cum, c, init, dtype=dt)
+    h_in, final = ssd_ops.state_pass(w_states, w_cum, c, init, dtype=h_dtype)
     w_h_in, w_final = ssd_ref.state_pass_reference(w_states, w_cum, c, init)
-    h16 = w_h_in.to(dt)
-    y = ssd_ops.chunk_scan(x, dtv, B, C, w_cum, h16, c)
-    wy = ssd_ref.chunk_scan_reference(x, dtv, B, C, w_cum, h16.float(), c)
+    h_op = w_h_in.to(h_dtype)
+    y = ssd_ops.chunk_scan(x, dtv, B, C, w_cum, h_op, c)
+    wy = ssd_ref.chunk_scan_reference(x, dtv, B, C, w_cum, h_op.float(), c)
     torch.cuda.synchronize()
 
     def close(got, want, t):
@@ -1384,20 +1395,22 @@ def ssd_passes_vs_plain(ssd_ops, ssd_ref, case):
     check(passes["chunk_scan y"]["ok"],
           f"{kind} chunk_scan at {list(case[:7])} disagrees: {passes['chunk_scan y']}")
     emit({"phase": "ssd_passes_vs_plain", "variant": kind, "shape": list(case[:7]),
-          "dtype": str(dt).split(".")[1], "passes": passes})
+          "dtype": str(dt).split(".")[1], "pad": pad, "passes": passes})
     return kind
 
 
 def phase_ssd_kernel(ssd_ops, ssd_ref):
     """Every listed shape on the kernel the variant table names, against the
-    plain version, jamba's shape on simt too (in views TMA cannot read), and
-    the init-state continuation (tf32x3); each sm90 pass against its own
-    plain pass at mamba2's and jamba's shapes, each tf32x3 pass at mamba2's
-    in float32 and at jamba's float32 decode check's; then the kernels'
-    times (sm90 at both shapes in bf16 and tf32x3 at mamba2's and the
-    float32 prefill check's, each pass beside its bound; simt at jamba's
-    shape in unaligned views), and of the sm90 kernel at two other cuts of
-    mamba2's tokens."""
+    plain version, jamba's shape on mma too (in views TMA cannot read: rows
+    padded by 4 bf16, and views one bf16 in), and the init-state
+    continuation (tf32x3); each sm90 pass against its own plain pass at
+    mamba2's and jamba's shapes, each tf32x3 pass at mamba2's in float32 and
+    at jamba's float32 decode check's, each mma pass at jamba's shape in
+    padded rows and at the serve demo's; then the kernels' times, each pass
+    beside its bound (sm90 at both shapes in bf16, tf32x3 at mamba2's and the
+    float32 prefill check's, mma at jamba's and mamba2's shapes in padded
+    rows, at the bf16 p-32 case and at the serve demo's), and of the sm90
+    kernel at two other cuts of mamba2's tokens."""
     rows = []
 
     def compare(case, got, want, what, kind):
@@ -1435,16 +1448,23 @@ def phase_ssd_kernel(ssd_ops, ssd_ref):
           "the main shape must run on sm90 in bf16 and on tf32x3 in float32")
     jamba_row = rows[len(SSD_CASES) - 1]
     check(jamba_row["variant"] == "sm90", "jamba's SSD shape must run on sm90")
-    # jamba's shape on simt, the kernel its SSM layers ran on before sm90 took
-    # n 16: the same inputs in rows padded by 4 bf16, which TMA cannot read
-    x, dtv, A, B, C = ssd_inputs(JAMBA_SSD, seed=200 + len(SSD_CASES) - 1, pad=4)
-    kind = ssd_ops.variant(JAMBA_SSD[7], JAMBA_SSD[3], JAMBA_SSD[5], JAMBA_SSD[6],
-                           ssd_ops.tma_aligned(x, B, C))
-    check(kind == "simt", f"jamba's shape in unaligned views runs on {kind}, want simt")
-    compare(JAMBA_SSD, ssd_ops.ssd_scan(x, dtv, A, B, C, chunk=JAMBA_SSD[6]),
-            ssd_ref.ssd_reference(x, dtv, A, B, C, chunk=JAMBA_SSD[6]),
-            "kernel vs plain, unaligned views", kind)
-    del x, dtv, A, B, C
+    # jamba's shape on mma, in views TMA cannot read: the same inputs in rows
+    # padded by 4 bf16 (4-byte copies), and in views one bf16 in (2-byte loads)
+    for pad, start, views in ((4, 0, "rows padded by 4 bf16"), (0, 1, "views one bf16 in")):
+        x, dtv, A, B, C = ssd_inputs(JAMBA_SSD, seed=200 + len(SSD_CASES) - 1, pad=pad,
+                                     start=start)
+        kind = ssd_ops.variant(JAMBA_SSD[7], JAMBA_SSD[3], JAMBA_SSD[5], JAMBA_SSD[6],
+                               ssd_ops.tma_aligned(x, B, C))
+        check(kind == "mma", f"jamba's shape in {views} runs on {kind}, want mma")
+        ssd_ops.LAUNCHES_BY_VARIANT.update({k: 0 for k in ssd_ops.LAUNCHES_BY_VARIANT})
+        got = ssd_ops.ssd_scan(x, dtv, A, B, C, chunk=JAMBA_SSD[6])
+        launched = dict(ssd_ops.LAUNCHES_BY_VARIANT)
+        torch.cuda.synchronize()
+        check(launched == {k: int(k == kind) for k in launched},
+              f"jamba's shape in {views} launched {launched}, want one mma")
+        compare(JAMBA_SSD, got, ssd_ref.ssd_reference(x, dtv, A, B, C, chunk=JAMBA_SSD[6]),
+                f"kernel vs plain, {views}", kind)
+        del x, dtv, A, B, C, got
     # The continuation of tests/test_kernels.py: two halves, the second from
     # the first one's final state, against the whole sequence.
     case = (1, 128, 4, 16, 1, 8, 32, torch.float32)
@@ -1464,17 +1484,23 @@ def phase_ssd_kernel(ssd_ops, ssd_ref):
     # Each pass against its own plain pass (the starting states from an init
     # state; pass 3 given the same starting states): sm90 at mamba2's and
     # jamba's bf16 shapes, tf32x3 at mamba2's in float32 and at jamba's
-    # float32 decode check's.
-    for case in (MAIN_SSD, JAMBA_SSD, MAIN_SSD_F32, JAMBA_DECODE_SSD_F32):
-        ssd_passes_vs_plain(ssd_ops, ssd_ref, case)
+    # float32 decode check's, mma at jamba's in rows padded by 4 bf16 and at
+    # the serve demo's.
+    for case, pad, kind in ((MAIN_SSD, 0, "sm90"), (JAMBA_SSD, 0, "sm90"),
+                            (MAIN_SSD_F32, 0, "tf32x3"), (JAMBA_DECODE_SSD_F32, 0, "tf32x3"),
+                            (JAMBA_SSD, 4, "mma"), (DEMO_SSD, 0, "mma")):
+        got = ssd_passes_vs_plain(ssd_ops, ssd_ref, case, pad=pad)
+        check(got == kind, f"the passes at {list(case[:7])}, pad {pad} ran on {got}, not {kind}")
 
     # each kernel's times at its main-path shapes: sm90 at mamba2's and
     # jamba's (bf16, n 16), tf32x3 at mamba2's and the float32 prefill
-    # check's, simt at jamba's in the unaligned views
+    # check's, mma at jamba's and mamba2's in rows padded by 4 bf16, at the
+    # bf16 p-32 case and at the serve demo's
     timings = {}
     for key, case, pad in (("sm90", MAIN_SSD, 0), ("sm90_jamba", JAMBA_SSD, 0),
                            ("tf32x3", MAIN_SSD_F32, 0), ("tf32x3_prefill", PREFILL_SSD_F32, 0),
-                           ("simt_jamba", JAMBA_SSD, 4)):
+                           ("mma_jamba", JAMBA_SSD, 4), ("mma_p32", SSD_CASES[3], 0),
+                           ("mma_demo", DEMO_SSD, 0), ("mma_main", MAIN_SSD, 4)):
         x, dtv, A, B, C = ssd_inputs(case, seed=8, pad=pad)
         chunk = case[6]
         kind = key.split("_")[0]
@@ -1503,8 +1529,7 @@ def phase_ssd_kernel(ssd_ops, ssd_ref):
         if kind == "tf32x3":
             # the same operations on the CUDA cores at the float32 peak
             timings[key]["cuda_core_floor_ms"] = flops / PEAK_F32_FLOPS * 1e3
-        if kind in ("sm90", "tf32x3"):
-            timings[key]["passes"] = ssd_pass_times(ssd_ops, case, x, dtv, A, B, C)
+        timings[key]["passes"] = ssd_pass_times(ssd_ops, case, x, dtv, A, B, C)
         if key == "tf32x3":
             # pass 3's heads per block: the wrapper's beside fewer and more
             used = ssd_ops.F32_SCAN_HEADS
@@ -2732,7 +2757,7 @@ def phase_examples(kernels, engine, fa_ref):
 
     * the serve demo, one ``main([arch])`` per reduced arch, its launches
       counted by variant against ``layer_counts``: llama3's prefill attention
-      at head dim 16 on ``sm90`` (2 layers), mamba2's scan on the ``simt`` SSD
+      at head dim 16 on ``sm90`` (2 layers), mamba2's scan on the ``mma`` SSD
       kernel (p 16, n 16, chunk 32 are no sm90 shape; 2 layers), deepseek-v3's
       MLA on no kernel; then reduced llama's prefill logits, kernel against
       plain, and the D-16 kernel timed at that prefill's attention shape;
@@ -2763,14 +2788,14 @@ def phase_examples(kernels, engine, fa_ref):
         check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), f"{arch}: token out of range")
         counts = layer_counts(cfg)
         # the variant each kernel takes at the reduced configs' shapes
-        demo_variant = {"fa": "sm90", "ssd": "simt"}
+        demo_variant = {"fa": "sm90", "ssd": "mma"}
         want = {k: {v: counts[k] if v == demo_variant[k] else 0 for v in ops.LAUNCHES_BY_VARIANT}
                 for k, ops in kernels.items()}
         check(by_variant == want, f"{arch}: launches {by_variant}, want {want}")
         serve[arch] = {"launches_by_variant": by_variant, "seconds": res["seconds"],
                        "sample": res["tokens"][0][:8]}
     check([serve[a]["launches_by_variant"]["fa"]["sm90"] for a in demo.ARCHS] == [2, 0, 0]
-          and [serve[a]["launches_by_variant"]["ssd"]["simt"] for a in demo.ARCHS] == [0, 2, 0],
+          and [serve[a]["launches_by_variant"]["ssd"]["mma"] for a in demo.ARCHS] == [0, 2, 0],
           f"serve demo launches {serve}")
 
     cfg = get_config("llama3-8b").reduced()
@@ -2988,25 +3013,28 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
     # tf32x3: every float32 scan on the card, mamba2's decode check (4) and
-    # full-depth prefill check (24), jamba's decode check (4); simt: the
+    # full-depth prefill check (24), jamba's decode check (4); mma: the
     # serve demo's reduced mamba2 prefill, bf16 at p 16
     ssd_paths = {
         "sm90": {"serve_mamba2": ssd_launches["ssd"],
                  "serve_jamba": families["jamba-v0.1-52b"]["launches"]["ssd"]},
         "tf32x3": {"decode_check_jamba": families["decode_ssd_f32"],
                    "f32_checks_mamba2": ssd_checks},
-        "simt": {"examples_serve_mamba2":
-                 examples["serve_demo"]["mamba2-130m"]["launches_by_variant"]["ssd"]["simt"]}}
+        "mma": {"examples_serve_mamba2":
+                examples["serve_demo"]["mamba2-130m"]["launches_by_variant"]["ssd"]["mma"]}}
     check(ssd_paths["tf32x3"] == {"decode_check_jamba": 4, "f32_checks_mamba2": 28},
           f"float32 SSD launches {ssd_paths['tf32x3']}")
     # sm90 at mamba2's shape with jamba's beside it; tf32x3 at mamba2's in
-    # float32 with the float32 prefill check's beside it; simt at jamba's
-    # bf16 shape in views TMA cannot read
+    # float32 with the float32 prefill check's beside it; mma at jamba's
+    # bf16 shape in views TMA cannot read, with the bf16 p-32 case, the
+    # serve demo's and mamba2's shape in those views beside it
     for name, kind, src, key, others in (
             ("ssd_scan", "sm90", "ssd_scan_sm90.cu", "sm90", {"jamba_shape": "sm90_jamba"}),
             ("ssd_scan_tf32x3", "tf32x3", "ssd_scan_f32_sm90.cu", "tf32x3",
              {"prefill_check_shape": "tf32x3_prefill"}),
-            ("ssd_scan_simt", "simt", "ssd_scan.cu", "simt_jamba", {})):
+            ("ssd_scan_mma", "mma", "ssd_scan_mma_sm90.cu", "mma_jamba",
+             {"p32_shape": "mma_p32", "demo_shape": "mma_demo",
+              "mamba2_shape_padded_rows": "mma_main"})):
         t = ssd_timing[key]
         entries.append({
             "name": name, "route": "cuda", "source": SSD_SRC + src, "replaces": SSD_REPLACES,

@@ -86,7 +86,7 @@ def main() -> int:
     res = {"card": card, "arch": cfg.name, "tokens": [8, 4096], "logits_scale": scale,
            "plain": 0.0}
 
-    ssd_ops.LAUNCHES_BY_VARIANT.update(sm90=0, simt=0)
+    ssd_ops.LAUNCHES_BY_VARIANT.update({k: 0 for k in ssd_ops.LAUNCHES_BY_VARIANT})
     res["kernel"] = gap(logits())
     check_sm90 = dict(ssd_ops.LAUNCHES_BY_VARIANT)
 
@@ -111,13 +111,13 @@ def main() -> int:
     _build.BUILD_DIR = scratch / "lib"
     _build._LIBS.pop("ssd_scan", None)
     try:
-        ssd_ops.LAUNCHES_BY_VARIANT.update(sm90=0, simt=0)
+        ssd_ops.LAUNCHES_BY_VARIANT.update({k: 0 for k in ssd_ops.LAUNCHES_BY_VARIANT})
         res["kernel_expf"] = gap(logits())
         check_expf = dict(ssd_ops.LAUNCHES_BY_VARIANT)
     finally:
         _build.KERNELS_DIR, _build.BUILD_DIR = saved
         _build._LIBS.pop("ssd_scan", None)
-    want = {"sm90": cfg.n_layers, "simt": 0}
+    want = {k: cfg.n_layers if k == "sm90" else 0 for k in ssd_ops.LAUNCHES_BY_VARIANT}
     if check_sm90 != want or check_expf != want:
         raise SystemExit(f"launches {check_sm90} / {check_expf}, want {want} each")
     res["launches_by_variant"] = want

@@ -2,7 +2,8 @@
 // bf16 x, B, C at head dim 64, d_state 16, 64 or 128, chunks of 64, 128 or
 // 256. Plain C entry points, one per pass: ssd_chunk_state_sm90,
 // ssd_state_pass_sm90, ssd_chunk_scan_sm90 (ops.py calls the three in turn
-// for the "sm90" variant; ssd_scan.cu keeps the CUDA-core kernel, "simt").
+// for the "sm90" variant; ssd_scan_mma_sm90.cu takes the other bf16 shapes,
+// "mma", and ssd_scan_f32_sm90.cu float32, "tf32x3").
 //
 // Replaces: the Pallas TPU kernel `_ssd_kernel`, launched by `ssd_scan_pallas`
 // (src/repro/kernels/ssd_scan/ssd_scan.py:24, :75), for bf16 inputs. It

@@ -164,7 +164,7 @@ def test_wrapper_rejects_bad_inputs(bad):
 def test_build_lists_the_kernel_and_names_its_library_by_source():
     assert "ssd_scan" in _build.KERNELS
     assert [p.name for p in _build.sources("ssd_scan")] == [
-        "ssd_scan.cu", "ssd_scan_f32_sm90.cu", "ssd_scan_sm90.cu"]
+        "ssd_scan_f32_sm90.cu", "ssd_scan_mma_sm90.cu", "ssd_scan_sm90.cu"]
     # the shared Hopper and TF32x3 headers are hashed into the name (and
     # reach nvcc by -I)
     assert _build.shared_include() / "hopper.cuh" in _build.headers("ssd_scan")

@@ -1,22 +1,22 @@
 """The SSD scan's three passes (chunk states, state recurrence, outputs), the
-variant table that picks the ``sm90``, ``tf32x3`` or ``simt`` kernel, and the
-``sm90`` (bf16) and ``tf32x3`` (float32) kernels on the card.
+variant table that picks the ``sm90``, ``tf32x3`` or ``mma`` kernel, and the
+``sm90`` (bf16), ``tf32x3`` (float32) and ``mma`` (bf16) kernels on the card.
 
 Inputs are made with numpy from a fixed seed. On the CPU the composition of
 the plain passes (``repro_torch.models.ssm``: ``chunk_state``,
 ``state_pass``, ``chunk_scan``) is held against the JAX ``ssd_chunked`` and
-the Pallas kernel in interpret mode. On a host with a card each ``sm90`` and
-``tf32x3`` pass is held against its own plain pass, and the whole scan
-against ``ssd_chunked`` (these tests skip elsewhere):
+the Pallas kernel in interpret mode. On a host with a card each ``sm90``,
+``tf32x3`` and ``mma`` pass is held against its own plain pass, and the whole
+scan against ``ssd_chunked`` (these tests skip elsewhere):
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_ssd_passes.py
 
 Tolerances are the reference tests' own (``tests/test_kernels.py``): y within
 1e-4 (f32) or 3e-2 (bf16) of max |y|; states at rtol = atol = 1e-4 (f32) or
-1e-2 (bf16: the kernel rounds x dt exp(.) and each chunk's starting state to
-bf16 as wgmma operands). The card tests of both kernels:
+1e-2 (bf16: the sm90 kernel rounds x dt exp(.) and each chunk's starting
+state to bf16 as wgmma operands). The card tests of the three kernels:
 
-    PYTHONPATH=src python -m pytest -q tests/test_torch_ssd_passes.py -k "sm90 or tf32x3"
+    PYTHONPATH=src python -m pytest -q tests/test_torch_ssd_passes.py -k "sm90 or tf32x3 or mma"
 """
 import numpy as np
 import pytest
@@ -204,18 +204,18 @@ VARIANT_TABLE = [
     ("bfloat16", 64, 128, 128, True, "sm90"),
     ("bfloat16", 64, 64, 256, True, "sm90"),
     ("float32", 64, 128, 256, True, "tf32x3"),    # mamba2's shape in float32
-    ("bfloat16", 16, 128, 256, True, "simt"),
-    ("bfloat16", 32, 128, 256, True, "simt"),
-    ("bfloat16", 64, 8, 256, True, "simt"),
+    ("bfloat16", 16, 128, 256, True, "mma"),
+    ("bfloat16", 32, 128, 256, True, "mma"),
+    ("bfloat16", 64, 8, 256, True, "mma"),
     ("bfloat16", 64, 16, 256, True, "sm90"),       # jamba-v0.1-52b's SSM layers
     ("bfloat16", 64, 16, 128, True, "sm90"),
     ("bfloat16", 64, 16, 64, True, "sm90"),
-    ("bfloat16", 64, 32, 256, True, "simt"),
+    ("bfloat16", 64, 32, 256, True, "mma"),
     ("float32", 64, 16, 256, True, "tf32x3"),     # jamba's, in float32
-    ("bfloat16", 64, 16, 256, False, "simt"),
-    ("bfloat16", 64, 128, 96, True, "simt"),
-    ("bfloat16", 64, 128, 17, True, "simt"),
-    ("bfloat16", 64, 128, 256, False, "simt"),
+    ("bfloat16", 64, 16, 256, False, "mma"),
+    ("bfloat16", 64, 128, 96, True, "mma"),
+    ("bfloat16", 64, 128, 17, True, "mma"),
+    ("bfloat16", 64, 128, 256, False, "mma"),
     ("float32", 16, 16, 32, True, "tf32x3"),      # every float32 shape: tf32x3
     ("float32", 32, 16, 64, True, "tf32x3"),
     ("float32", 64, 8, 64, True, "tf32x3"),
@@ -247,7 +247,7 @@ def test_tma_alignment_of_the_models_views_and_of_a_misaligned_stride():
     assert ops.tma_aligned(*views(d_in + 2 * g * n))
     assert ops.variant(torch.bfloat16, p, n, 256, ops.tma_aligned(*views(d_in + 2 * g * n))) == "sm90"
     assert not ops.tma_aligned(*views(d_in + 2 * g * n + 4))
-    assert ops.variant(torch.bfloat16, p, n, 256, ops.tma_aligned(*views(d_in + 2 * g * n + 4))) == "simt"
+    assert ops.variant(torch.bfloat16, p, n, 256, ops.tma_aligned(*views(d_in + 2 * g * n + 4))) == "mma"
     assert not ops.tma_aligned(*views(d_in + 2 * g * n, start=1))
 
 
@@ -269,7 +269,7 @@ def test_tma_alignment_of_jambas_conv_output_views():
 
 
 def test_variant_counts_cover_both_kernels():
-    assert set(ops.LAUNCHES_BY_VARIANT) == {"sm90", "tf32x3", "simt"}
+    assert set(ops.LAUNCHES_BY_VARIANT) == {"sm90", "tf32x3", "mma"}
 
 
 # --------------------------------------------------------------------------- #
@@ -310,10 +310,10 @@ def test_sm90_scan_vs_plain(case, cuda_device):
     b, s, nh, p, g, n, chunk, name = case
     inputs = _card_inputs(case, s + nh + n, cuda_device)
     assert ops.variant(inputs[0].dtype, p, n, chunk, ops.tma_aligned(inputs[0], *inputs[3:])) == "sm90"
-    ops.LAUNCHES_BY_VARIANT.update(sm90=0, tf32x3=0, simt=0)
+    ops.LAUNCHES_BY_VARIANT.update(sm90=0, tf32x3=0, mma=0)
     y, h = ops.ssd_scan(*inputs, chunk=chunk)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES_BY_VARIANT == {"sm90": 1, "tf32x3": 0, "simt": 0}
+    assert ops.LAUNCHES_BY_VARIANT == {"sm90": 1, "tf32x3": 0, "mma": 0}
     want_y, want_h = ref.ssd_reference(*inputs, chunk=chunk)
     assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
     _assert_y(y, want_y, name)
@@ -361,9 +361,9 @@ def test_sm90_reads_conv_output_views_with_an_init_state(nh, n, cuda_device):
     assert not x.is_contiguous() and ops.tma_aligned(x, B, C)
     _, dt, A, _, _ = _card_inputs((b, s, nh, p, g, n, chunk, "float32"), 4, cuda_device)
     init = torch.from_numpy(rng.standard_normal((b, nh, p, n)).astype(np.float32)).to(cuda_device)
-    ops.LAUNCHES_BY_VARIANT.update(sm90=0, tf32x3=0, simt=0)
+    ops.LAUNCHES_BY_VARIANT.update(sm90=0, tf32x3=0, mma=0)
     y, h = ops.ssd_scan(x, dt, A, B, C, chunk=chunk, init_state=init)
-    assert ops.LAUNCHES_BY_VARIANT == {"sm90": 1, "tf32x3": 0, "simt": 0}
+    assert ops.LAUNCHES_BY_VARIANT == {"sm90": 1, "tf32x3": 0, "mma": 0}
     want_y, want_h = ref.ssd_reference(x, dt, A, B, C, chunk=chunk, init_state=init)
     _assert_y(y, want_y, "bfloat16")
     _assert_close(h, want_h, STATE_TOL["bfloat16"])
@@ -387,18 +387,18 @@ def test_launches_by_variant_follow_the_table(case, cuda_device):
     b, s, nh, p, g, n, chunk, name = case
     inputs = _card_inputs(case, 9, cuda_device)
     want = ops.variant(getattr(torch, name), p, n, chunk, ops.tma_aligned(inputs[0], *inputs[3:]))
-    ops.LAUNCHES_BY_VARIANT.update(sm90=0, tf32x3=0, simt=0)
+    ops.LAUNCHES_BY_VARIANT.update(sm90=0, tf32x3=0, mma=0)
     y, h = ops.ssd_scan(*inputs, chunk=chunk)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES_BY_VARIANT == {k: int(k == want) for k in ("sm90", "tf32x3", "simt")}
+    assert ops.LAUNCHES_BY_VARIANT == {k: int(k == want) for k in ("sm90", "tf32x3", "mma")}
     want_y, want_h = ref.ssd_reference(*inputs, chunk=chunk)
     _assert_y(y, want_y, name)
     _assert_close(h, want_h, STATE_TOL[name])
 
 
 def test_sm90_passes_refuse_what_they_cannot_take(cuda_device):
-    # bf16 at p 32 is a simt shape: no pass kernel takes it
-    x, dt, A, B, C = _card_inputs((1, 64, 4, 32, 1, 128, 64, "bfloat16"), 10, cuda_device)
+    # bf16 at p 48: neither sm90 nor mma takes it
+    x, dt, A, B, C = _card_inputs((1, 64, 2, 48, 1, 128, 64, "bfloat16"), 10, cuda_device)
     with pytest.raises(ValueError, match="sm90"):
         ops.chunk_state(x, dt, A, B, 64)
     # float32 at p 48, or with B in another dtype than x
@@ -439,10 +439,10 @@ def test_tf32x3_scan_vs_plain(case, cuda_device):
     b, s, nh, p, g, n, chunk, name = case
     inputs = _card_inputs(case, s + nh + n + 2, cuda_device)
     assert ops.variant(torch.float32, p, n, chunk) == "tf32x3"
-    ops.LAUNCHES_BY_VARIANT.update(sm90=0, tf32x3=0, simt=0)
+    ops.LAUNCHES_BY_VARIANT.update(sm90=0, tf32x3=0, mma=0)
     y, h = ops.ssd_scan(*inputs, chunk=chunk)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES_BY_VARIANT == {"sm90": 0, "tf32x3": 1, "simt": 0}
+    assert ops.LAUNCHES_BY_VARIANT == {"sm90": 0, "tf32x3": 1, "mma": 0}
     want_y, want_h = ref.ssd_reference(*inputs, chunk=min(chunk, s))
     assert y.dtype == torch.float32 and h.dtype == torch.float32
     _assert_y(y, want_y, name)
@@ -490,9 +490,9 @@ def test_tf32x3_reads_conv_output_views_with_an_init_state(pad, cuda_device):
     assert not x.is_contiguous() and ops._vec(x, B, C) == (pad == 0)
     _, dt, A, _, _ = _card_inputs((b, s, nh, p, g, n, chunk, "float32"), 6, cuda_device)
     init = torch.from_numpy(rng.standard_normal((b, nh, p, n)).astype(np.float32)).to(cuda_device)
-    ops.LAUNCHES_BY_VARIANT.update(sm90=0, tf32x3=0, simt=0)
+    ops.LAUNCHES_BY_VARIANT.update(sm90=0, tf32x3=0, mma=0)
     y, h = ops.ssd_scan(x, dt, A, B, C, chunk=chunk, init_state=init)
-    assert ops.LAUNCHES_BY_VARIANT == {"sm90": 0, "tf32x3": 1, "simt": 0}
+    assert ops.LAUNCHES_BY_VARIANT == {"sm90": 0, "tf32x3": 1, "mma": 0}
     want_y, want_h = ref.ssd_reference(x, dt, A, B, C, chunk=chunk, init_state=init)
     _assert_y(y, want_y, "float32")
     _assert_close(h, want_h, STATE_TOL["float32"])
@@ -500,6 +500,101 @@ def test_tf32x3_reads_conv_output_views_with_an_init_state(pad, cuda_device):
 
 def test_tf32x3_is_deterministic(cuda_device):
     inputs = _card_inputs(TF32X3_CASES[5], 7, cuda_device)
+    y1, h1 = ops.ssd_scan(*inputs, chunk=256)
+    y2, h2 = ops.ssd_scan(*inputs, chunk=256)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+# --------------------------------------------------------------------------- #
+# The mma kernel on the card (bf16 at the shapes sm90 does not take)
+# --------------------------------------------------------------------------- #
+# chip_smoke.py's bf16 p-32 case, the serve demo's reduced mamba2 (p 16, n 16,
+# chunks of 32), p 32 at n 128 over two chunks of 256, n 8 with g 2, n 32 at
+# p 64, a d_state that is no power of two (n 48, padded to 64 in the tiles),
+# ragged chunks of 17 (jamba's decode forward's, cut to 8 heads) and 96 (one
+# full and one partial tile), and chunks of 16.
+MMA_CASES = [
+    (2, 128, 4, 32, 1, 16, 32, "bfloat16"),
+    (4, 32, 8, 16, 1, 16, 32, "bfloat16"),
+    (1, 512, 8, 32, 1, 128, 256, "bfloat16"),
+    (1, 256, 4, 16, 2, 8, 32, "bfloat16"),
+    (1, 64, 4, 64, 1, 32, 64, "bfloat16"),
+    (1, 128, 4, 64, 1, 48, 64, "bfloat16"),
+    (2, 17, 8, 64, 1, 16, 17, "bfloat16"),
+    (1, 192, 4, 32, 2, 128, 96, "bfloat16"),
+    (2, 16, 24, 64, 1, 128, 16, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("case", MMA_CASES, ids=str)
+def test_mma_scan_vs_plain(case, cuda_device):
+    b, s, nh, p, g, n, chunk, name = case
+    inputs = _card_inputs(case, s + nh + n + 4, cuda_device)
+    assert ops.variant(torch.bfloat16, p, n, chunk, ops.tma_aligned(inputs[0], *inputs[3:])) == "mma"
+    ops.LAUNCHES_BY_VARIANT.update(sm90=0, tf32x3=0, mma=0)
+    y, h = ops.ssd_scan(*inputs, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES_BY_VARIANT == {"sm90": 0, "tf32x3": 0, "mma": 1}
+    want_y, want_h = ref.ssd_reference(*inputs, chunk=min(chunk, s))
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    _assert_y(y, want_y, name)
+    _assert_close(h, want_h, STATE_TOL[name])
+
+
+@pytest.mark.parametrize("case", MMA_CASES, ids=str)
+def test_mma_passes_each_vs_its_plain_pass(case, cuda_device):
+    b, s, nh, p, g, n, chunk, name = case
+    chunk = min(chunk, s)
+    x, dt, A, B, C = _card_inputs(case, s + nh + n + 5, cuda_device)
+    states, cum = ops.chunk_state(x, dt, A, B, chunk)
+    torch.cuda.synchronize()
+    want_states, want_cum = ref.chunk_state_reference(x, dt, A, B, chunk)
+    _assert_close(cum, want_cum, 1e-4)
+    _assert_close(states, want_states, STATE_TOL[name])
+
+    init = torch.randn(b, nh, p, n, device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(3))
+    h_in, final = ops.state_pass(want_states, want_cum, chunk, init, dtype=torch.float32)
+    torch.cuda.synchronize()
+    want_h_in, want_final = ref.state_pass_reference(want_states, want_cum, chunk, init)
+    _assert_close(h_in, want_h_in, 1e-4)
+    _assert_close(final, want_final, 1e-4)
+
+    y = ops.chunk_scan(x, dt, B, C, want_cum, want_h_in, chunk)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16
+    _assert_y(y, ref.chunk_scan_reference(x, dt, B, C, want_cum, want_h_in, chunk), name)
+
+
+@pytest.mark.parametrize("pad,start,elems", [(0, 0, 8), (4, 0, 2), (0, 1, 1)],
+                         ids=["aligned", "padded", "odd_start"])
+def test_mma_reads_conv_output_views_with_an_init_state(pad, start, elems, cuda_device):
+    """x, B, C as views into one (b, s, conv_dim) bf16 tensor, as the model
+    passes them: rows as they are (16-byte copies), padded by 4 bf16 (4-byte
+    copies) or starting one bf16 in (2-byte loads); and a continuation from
+    an init state."""
+    b, s, nh, p, g, n, chunk = 2, 256, 8, 32, 1, 16, 128
+    d_in = nh * p
+    rng = np.random.default_rng(7)
+    width = d_in + 2 * g * n + pad
+    xbc = torch.from_numpy(rng.standard_normal((b, s, width + start)).astype(np.float32) * 0.4)
+    xbc = xbc.to(cuda_device, torch.bfloat16)[..., start:]
+    x = xbc[..., :d_in].reshape(b, s, nh, p)
+    B = xbc[..., d_in:d_in + g * n].reshape(b, s, g, n)
+    C = xbc[..., d_in + g * n:d_in + 2 * g * n].reshape(b, s, g, n)
+    assert not x.is_contiguous() and ops._elems(x, B, C) == elems
+    _, dt, A, _, _ = _card_inputs((b, s, nh, p, g, n, chunk, "float32"), 8, cuda_device)
+    init = torch.from_numpy(rng.standard_normal((b, nh, p, n)).astype(np.float32)).to(cuda_device)
+    ops.LAUNCHES_BY_VARIANT.update(sm90=0, tf32x3=0, mma=0)
+    y, h = ops.ssd_scan(x, dt, A, B, C, chunk=chunk, init_state=init)
+    assert ops.LAUNCHES_BY_VARIANT == {"sm90": 0, "tf32x3": 0, "mma": 1}
+    want_y, want_h = ref.ssd_reference(x, dt, A, B, C, chunk=chunk, init_state=init)
+    _assert_y(y, want_y, "bfloat16")
+    _assert_close(h, want_h, STATE_TOL["bfloat16"])
+
+
+def test_mma_is_deterministic(cuda_device):
+    inputs = _card_inputs(MMA_CASES[2], 9, cuda_device)
     y1, h1 = ops.ssd_scan(*inputs, chunk=256)
     y2, h2 = ops.ssd_scan(*inputs, chunk=256)
     assert torch.equal(y1, y2) and torch.equal(h1, h2)
