@@ -41,7 +41,6 @@ template's dtype, shape and device.
 from __future__ import annotations
 
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Any, Dict, Iterator, List, Optional, Tuple
@@ -49,6 +48,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.recovery.tiers import (TIER_DEVICE, TIER_DRAM, TIER_NAS,
                                         TIER_PEER, TierTable)
 from repro_torch.sim.clock import SimClock
@@ -200,6 +200,7 @@ class SaveHandle:
     def __init__(self, step: int, engine: "TCEngine"):
         self.step = step
         self._engine = engine
+        self.snapshot_s: float = 0.0         # real time to the host copy (blocking)
         self.cache_wall_s: float = 0.0       # real time to reach cache (blocking)
         self.modeled_cache_s: float = 0.0    # staged bytes / B_mem (paper's metric)
         self.nbytes: int = 0                 # logical checkpoint bytes
@@ -277,42 +278,57 @@ class TCEngine:
     def save(self, step: int, state, *, meta: Optional[dict] = None,
              wait: bool = False) -> SaveHandle:
         """Checkpoint `state` (pytree or flat dict). Blocks only for the
-        in-memory cache write; persistence + backup happen asynchronously."""
-        flat = state if isinstance(state, dict) and all(
-            isinstance(v, np.ndarray) for v in state.values()) \
-            else flatten_pytree(state)
-        handle = SaveHandle(step, self)
-        if self.cfg.async_persist and self.cfg.pipeline_durability:
-            # bounded-staleness pipeline: previous checkpoints become durable
-            # before this one enters the cache (no-op in steady state)
-            self.reconciler.quiesce(self.cfg.durability_timeout_s)
-        meter0 = METER.read()
-        t0 = time.perf_counter()
-        per_node = shard_state(flat, self.cfg.n_nodes)
+        in-memory cache write; persistence + backup happen asynchronously.
 
-        def _put(rank: int) -> PutStats:
-            return self.caches[rank].put(step, per_node[rank],
-                                         n_threads=self.cfg.copy_threads)
+        Recorded as the span ``tce.save`` (``repro_torch.obs``) over its
+        children ``tce.snapshot`` (to host; ``bytes``), ``tce.quiesce`` and
+        ``tce.cache_put`` (sharding and the puts; ``bytes_staged``), which
+        has one ``tce.cache_put`` child per rank, on the pool's threads."""
+        with obs.span("tce.save", step=step):
+            with obs.span("tce.snapshot") as snap:
+                flat = state if isinstance(state, dict) and all(
+                    isinstance(v, np.ndarray) for v in state.values()) \
+                    else flatten_pytree(state)
+                snap.attrs["bytes"] = sum(int(a.nbytes) for a in flat.values())
+            handle = SaveHandle(step, self)
+            handle.snapshot_s = snap.seconds
+            if self.cfg.async_persist and self.cfg.pipeline_durability:
+                # bounded-staleness pipeline: previous checkpoints become
+                # durable before this one enters the cache (no-op in steady
+                # state)
+                with obs.span("tce.quiesce"):
+                    self.reconciler.quiesce(self.cfg.durability_timeout_s)
+            meter0 = METER.read()
+            with obs.span("tce.cache_put") as put_span:
+                per_node = shard_state(flat, self.cfg.n_nodes)
 
-        puts = self._map(_put, range(self.cfg.n_nodes))
-        handle.cache_wall_s = time.perf_counter() - t0
-        handle.nbytes = sum(p.nbytes for p in puts)
-        handle.bytes_staged = sum(p.bytes_staged for p in puts)
-        handle.bytes_copied = METER.read() - meter0
-        # nodes write their caches in parallel -> modelled latency is the max
-        handle.modeled_cache_s = max(p.bytes_staged for p in puts) \
-            / self.cfg.mem_bw
-        self.clock.advance(handle.modeled_cache_s)
-        if self.tiers is not None and TIER_DEVICE in self.tiers:
-            self._device = (step, flat)
-        with self._lock:
-            self.stats["saves"] += 1
-        if not self.cfg.async_persist:
-            self.reconciler.reconcile_once()
-        else:
-            self.reconciler.kick()
-        if wait:
-            handle.wait()
+                def _put(rank: int) -> PutStats:
+                    with obs.span("tce.cache_put", parent=put_span, rank=rank) as one:
+                        ps = self.caches[rank].put(step, per_node[rank],
+                                                   n_threads=self.cfg.copy_threads)
+                        one.attrs["bytes_staged"] = ps.bytes_staged
+                    return ps
+
+                puts = self._map(_put, range(self.cfg.n_nodes))
+                put_span.attrs["bytes_staged"] = sum(p.bytes_staged for p in puts)
+            handle.cache_wall_s = put_span.seconds
+            handle.nbytes = sum(p.nbytes for p in puts)
+            handle.bytes_staged = sum(p.bytes_staged for p in puts)
+            handle.bytes_copied = METER.read() - meter0
+            # nodes write their caches in parallel -> modelled latency is the max
+            handle.modeled_cache_s = max(p.bytes_staged for p in puts) \
+                / self.cfg.mem_bw
+            self.clock.advance(handle.modeled_cache_s)
+            if self.tiers is not None and TIER_DEVICE in self.tiers:
+                self._device = (step, flat)
+            with self._lock:
+                self.stats["saves"] += 1
+            if not self.cfg.async_persist:
+                self.reconciler.reconcile_once()
+            else:
+                self.reconciler.kick()
+            if wait:
+                handle.wait()
         return handle
 
     # ------------------------------------------------------------------ #

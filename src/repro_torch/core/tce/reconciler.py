@@ -23,6 +23,13 @@ With a non-raw ``codec`` the backup payload crosses the fabric encoded
 (zlib lossless / int8 blockwise-quantised through the quant_blockwise
 kernels) and is decoded on arrival. Every encode and decode of the backup
 path runs on the store's ``device``, as the store's own persist does.
+
+Spans (``repro_torch.obs``): a pass with work is ``tce.reconcile``, over
+``tce.digest`` (``bytes``), ``tce.persist`` (``bytes`` stored,
+``leaves_written``, ``leaves_skipped``, and the store's ``fsync_s``),
+``tce.backup`` (``bytes`` on the wire, ``leaves_sent``, ``leaves_reused``)
+and ``tce.commit`` (``ranks``); each carries its ``step``, and all but the
+commit their ``rank``. ``stats`` keeps only ``delta_leaves_skipped``.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.sim.clock import SimClock
 
 from .cache import CacheServer
@@ -94,10 +102,8 @@ class Reconciler:
         self.durable_at: Dict[int, float] = {}   # step -> modelled seconds
         self.errors: List[str] = []
         self.passes = 0
-        self.stats = {"delta_leaves_skipped": 0, "delta_leaves_written": 0,
-                      "backup_leaves_sent": 0, "backup_leaves_reused": 0,
-                      "backup_bytes_wire": 0, "cpu_bytes_charged": 0,
-                      "cpu_s_charged": 0.0}
+        # what else a pass counts is an attribute of its spans (module doc)
+        self.stats = {"delta_leaves_skipped": 0}
 
     # ------------------------------------------------------------------ #
     def start(self) -> None:
@@ -179,8 +185,6 @@ class Reconciler:
         """Charge digest/encode CPU work to the modelled clock. Off the
         training stall path by construction (the reconciler is async)."""
         if self.cpu_s_per_byte > 0 and nbytes > 0:
-            self.stats["cpu_bytes_charged"] += int(nbytes)
-            self.stats["cpu_s_charged"] += nbytes * self.cpu_s_per_byte
             self.clock.advance(nbytes * self.cpu_s_per_byte)
 
     def _digest_map(self, cache: CacheServer, step: int,
@@ -193,9 +197,11 @@ class Reconciler:
         existing = cache.digests(step)
         if existing and all(d is not None for d, _n, _s in existing.values()):
             return {p: d for p, (d, _n, _s) in existing.items()}
-        dig = {p: crc32_stream(d) for p, (sp, d) in shards.items()}
+        nbytes = sum(d.nbytes for _, d in shards.values())
+        with obs.span("tce.digest", step=step, rank=cache.rank, bytes=nbytes):
+            dig = {p: crc32_stream(d) for p, (sp, d) in shards.items()}
         cache.set_digests(step, dig)
-        self._charge_cpu(sum(d.nbytes for _, d in shards.values()))
+        self._charge_cpu(nbytes)
         return dig
 
     def _persist(self, cache: CacheServer, step: int, shards: NodeShards,
@@ -211,14 +217,17 @@ class Reconciler:
                 # own chain points back at it (a delta-ref cycle on disk)
                 if prev is not None and prev[1] == digest and prev[0] < step:
                     refs[path] = prev            # (home_step, digest)
-        self.store.write_rank(step, rank, shards, refs=refs, digests=digmap,
-                              codec=self.codec,
-                              lossless_paths=self.lossless_paths)
+        with obs.span("tce.persist", step=step, rank=rank,
+                      leaves_written=len(shards) - len(refs),
+                      leaves_skipped=len(refs)) as persist:
+            # the store adds its fsync seconds to this span (fsync_s)
+            persist.attrs["bytes"] = self.store.write_rank(
+                step, rank, shards, refs=refs, digests=digmap, codec=self.codec,
+                lossless_paths=self.lossless_paths)
         if self.codec != "raw":
             self._charge_cpu(sum(d.nbytes for p, (_sp, d) in shards.items()
                                  if p not in refs))
         self.stats["delta_leaves_skipped"] += len(refs)
-        self.stats["delta_leaves_written"] += len(shards) - len(refs)
         if self.delta and digmap:
             self._persisted_digests[rank] = {
                 path: (refs[path] if path in refs else (step, digest))
@@ -258,7 +267,7 @@ class Reconciler:
             wire[path] = payload
             metas[path] = (enc, meta, dtype_name(data.dtype), tuple(data.shape))
         self.fabric.send(rank, dst, wire)
-        self.stats["backup_bytes_wire"] += sum(p.nbytes for p in wire.values())
+        obs.add(bytes=sum(p.nbytes for p in wire.values()))
         decoded: NodeShards = {
             path: (shards[path][0],
                    decode_shard(metas[path][0], wire[path], metas[path][2],
@@ -274,8 +283,7 @@ class Reconciler:
                 if self.codec != "raw":
                     self._charge_cpu(sum(d.nbytes
                                          for _sp, d in decoded.values()))
-                self.stats["backup_leaves_sent"] += sent
-                self.stats["backup_leaves_reused"] += reused
+                obs.add(leaves_sent=sent, leaves_reused=reused)
                 cache.mark(step, backed_up=True)
                 return
             except KeyError:
@@ -293,15 +301,13 @@ class Reconciler:
                         meta, device=self.device))
                 self.fabric.send(rank, dst,
                                  {p: wire[p] for p in missing})
-                self.stats["backup_bytes_wire"] += sum(
-                    wire[p].nbytes for p in missing)
+                obs.add(bytes=sum(wire[p].nbytes for p in missing))
                 sent, reused = len(shards), 0
         dst_cache.put(step, decoded, is_backup=True, owner_rank=rank,
                       digests=digmap)
         if self.codec != "raw":
             self._charge_cpu(sum(d.nbytes for _sp, d in decoded.values()))
-        self.stats["backup_leaves_sent"] += sent
-        self.stats["backup_leaves_reused"] += reused
+        obs.add(leaves_sent=sent, leaves_reused=reused)
         cache.mark(step, backed_up=True)
 
     def _backup_legacy(self, cache: CacheServer, step: int) -> None:
@@ -315,52 +321,60 @@ class Reconciler:
         cache.mark(step, backed_up=True)
 
     def reconcile_once(self) -> None:
+        """One pass over the caches. A pass that finds work is the span
+        ``tce.reconcile``, from its first piece of work to its last; an idle
+        pass (the loop's, every ``interval_s``) records nothing."""
         self.passes += 1
         n = len(self.caches)
         persisted_steps: Dict[int, int] = {}
-        for cache in self.caches:
-            if self.fabric is not None and self.fabric.is_down(cache.rank):
-                continue
-            for step in cache.steps():
-                ent = cache.entry(step)
-                if ent is None or ent.is_backup:
+        with obs.on_demand("tce.reconcile") as working:
+            for cache in self.caches:
+                if self.fabric is not None and self.fabric.is_down(cache.rank):
                     continue
-                want_backup = (self.backup and self.fabric is not None
-                               and n > 1 and not ent.backed_up)
-                shards: Optional[NodeShards] = None
-                digmap: Optional[Dict[str, int]] = None
-                if not ent.persisted or want_backup:
-                    # one zero-copy view (and one digest pass) feeds both the
-                    # persist and the backup
-                    shards = cache.get(step)
-                    if shards is not None and not self.legacy:
-                        digmap = self._digest_map(cache, step, shards)
-                if not ent.persisted and shards is not None:
-                    try:
-                        self._persist(cache, step, shards, digmap)
-                    except Exception as e:
-                        self.errors.append(f"persist r{cache.rank} s{step}: {e!r}")
-                if want_backup and shards is not None:
-                    try:
-                        if self.legacy:
-                            self._backup_legacy(cache, step)
-                        else:
-                            self._backup(cache, step, shards, digmap)
-                    except TransportError as e:
-                        self.errors.append(f"backup r{cache.rank} s{step}: {e!r}")
-                ent = cache.entry(step)
-                if ent is not None and ent.persisted:
-                    persisted_steps[step] = persisted_steps.get(step, 0) + 1
-        # commit manifests for fully-persisted steps (idempotent)
-        with self._lock:
-            for step, cnt in sorted(persisted_steps.items()):
-                if cnt >= n and step not in self._committed:
-                    self.store.commit(step, n,
-                                      delta_base=self._last_committed
-                                      if self.delta else None)
-                    self._committed.add(step)
-                    self._last_committed = step
-                    self.durable_at[step] = self.clock.seconds
+                for step in cache.steps():
+                    ent = cache.entry(step)
+                    if ent is None or ent.is_backup:
+                        continue
+                    want_backup = (self.backup and self.fabric is not None
+                                   and n > 1 and not ent.backed_up)
+                    shards: Optional[NodeShards] = None
+                    digmap: Optional[Dict[str, int]] = None
+                    if not ent.persisted or want_backup:
+                        working()
+                        # one zero-copy view (and one digest pass) feeds both
+                        # the persist and the backup
+                        shards = cache.get(step)
+                        if shards is not None and not self.legacy:
+                            digmap = self._digest_map(cache, step, shards)
+                    if not ent.persisted and shards is not None:
+                        try:
+                            self._persist(cache, step, shards, digmap)
+                        except Exception as e:
+                            self.errors.append(f"persist r{cache.rank} s{step}: {e!r}")
+                    if want_backup and shards is not None:
+                        try:
+                            with obs.span("tce.backup", step=step, rank=cache.rank):
+                                if self.legacy:
+                                    self._backup_legacy(cache, step)
+                                else:
+                                    self._backup(cache, step, shards, digmap)
+                        except TransportError as e:
+                            self.errors.append(f"backup r{cache.rank} s{step}: {e!r}")
+                    ent = cache.entry(step)
+                    if ent is not None and ent.persisted:
+                        persisted_steps[step] = persisted_steps.get(step, 0) + 1
+            # commit manifests for fully-persisted steps (idempotent)
+            with self._lock:
+                for step, cnt in sorted(persisted_steps.items()):
+                    if cnt >= n and step not in self._committed:
+                        working()
+                        with obs.span("tce.commit", step=step, ranks=n):
+                            self.store.commit(step, n,
+                                              delta_base=self._last_committed
+                                              if self.delta else None)
+                        self._committed.add(step)
+                        self._last_committed = step
+                        self.durable_at[step] = self.clock.seconds
         # tier-aware aging: a TieredStore demotes steps over a leg's
         # capacity budget one rung down the hierarchy (idempotent no-op on
         # plain stores and under-budget legs)

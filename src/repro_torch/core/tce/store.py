@@ -52,6 +52,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.sim.clock import SimClock  # noqa: F401  (canonical clock; re-exported)
 
 from .codec import decode_shard, dtype_name, encode_shard, is_lossless_path
@@ -243,6 +244,8 @@ class DiskStore:
         rewritten (``home_step`` is the step whose rank dir holds the actual
         file). ``digests`` records the caller's content tokens for written
         leaves (delta bookkeeping); absent, a crc of the raw bytes is stored.
+        The seconds spent in ``fsync`` are added to the innermost open span
+        as ``fsync_s`` (the reconciler's ``tce.persist``; ``repro_torch.obs``).
         """
         d = self._rank_dir(step, rank)
         d.mkdir(parents=True, exist_ok=True)
@@ -270,7 +273,9 @@ class DiskStore:
             with open(tmp, "wb") as f:
                 f.write(memoryview(payload))
                 f.flush()
+                t_sync = time.perf_counter()
                 os.fsync(f.fileno())
+                obs.add(fsync_s=time.perf_counter() - t_sync)
             os.replace(tmp, d / fname)   # atomic
             stored_total += payload.nbytes
             digest = (digests[path] if digests and path in digests

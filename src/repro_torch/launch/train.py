@@ -183,6 +183,7 @@ def run_single(args) -> int:
         if (step + 1) % args.ckpt_every == 0:
             h = tce.save(step + 1, state)
             print(f"  tce.save(step={step+1}) "
+                  f"snapshot={h.snapshot_s*1e3:.0f}ms "
                   f"cache={h.cache_wall_s*1e3:.0f}ms "
                   f"(async persist in background)")
     durable = tce.reconciler.quiesce(60)

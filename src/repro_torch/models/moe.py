@@ -19,6 +19,11 @@ implementations, as in the reference:
 * ``dense`` (the reduced configs) — every expert runs on every token,
   weighted by the renormalised top-k gate; exact, no drops, O(E) FLOPs.
 
+The scatter path records its phases as the spans ``moe.route``,
+``moe.dispatch``, ``moe.experts`` and ``moe.combine`` (``repro_torch.obs``;
+attributes ``tokens`` and ``capacity``, the slots an expert has in a group).
+Their backward runs outside them, under the train step's ``train.backward``.
+
 The expert products are plain batched matmuls (``torch.einsum``), as the
 reference computes them outside any Pallas kernel. The router picks experts
 with ``torch.topk``, which returns the k largest in descending order, as
@@ -33,6 +38,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.parallel.sharding import active, constrain, is_device_mesh
 
 from .config import ModelConfig
@@ -158,10 +164,9 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, tor
             y = y + apply_mlp(p["shared"], x, cfg)
         return y, aux
 
-    probs, gate_w, expert_idx = _gate(p, x, cfg)
-    aux = _aux_loss(probs, expert_idx, mo.n_experts)
-
     if mo.impl == "dense":
+        probs, gate_w, expert_idx = _gate(p, x, cfg)
+        aux = _aux_loss(probs, expert_idx, mo.n_experts)
         h = torch.einsum("bsd,edf->bsef", x, p["wi"].to(dt))
         g = torch.einsum("bsd,edf->bsef", x, p["wg"].to(dt))
         out_e = torch.einsum("bsef,efd->bsed", F.silu(g) * h, p["wo"].to(dt))
@@ -172,15 +177,21 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, tor
         n_chunks = _n_groups(b, s, ctx.n_devices if ctx is not None else 1)
         g_len = s // n_chunks
         capacity = capacity_of(g_len, cfg)
-        xg = constrain(x.reshape(b * n_chunks, g_len, d), ("moe_groups", None, None))
-        gw = gate_w.reshape(b * n_chunks, g_len, -1)
-        disp, idx = _dispatch(xg, expert_idx.reshape(b * n_chunks, g_len, -1),
-                              mo.n_experts, capacity)
-        disp = constrain(disp, ("moe_groups_dp", "moe_experts", None, None))
-        out_slots = constrain(_experts_apply(p, disp, cfg),
-                              ("moe_groups_dp", "moe_experts", None, None))
-        y = constrain(_combine(out_slots, idx, gw), ("moe_groups", None, None))
-        y = y.reshape(b, s, d)
+        with obs.span("moe.route", tokens=b * s, capacity=capacity):
+            probs, gate_w, expert_idx = _gate(p, x, cfg)
+            aux = _aux_loss(probs, expert_idx, mo.n_experts)
+        with obs.span("moe.dispatch", tokens=b * s, capacity=capacity):
+            xg = constrain(x.reshape(b * n_chunks, g_len, d), ("moe_groups", None, None))
+            gw = gate_w.reshape(b * n_chunks, g_len, -1)
+            disp, idx = _dispatch(xg, expert_idx.reshape(b * n_chunks, g_len, -1),
+                                  mo.n_experts, capacity)
+            disp = constrain(disp, ("moe_groups_dp", "moe_experts", None, None))
+        with obs.span("moe.experts", tokens=b * s, capacity=capacity):
+            out_slots = constrain(_experts_apply(p, disp, cfg),
+                                  ("moe_groups_dp", "moe_experts", None, None))
+        with obs.span("moe.combine", tokens=b * s, capacity=capacity):
+            y = constrain(_combine(out_slots, idx, gw), ("moe_groups", None, None))
+            y = y.reshape(b, s, d)
 
     if mo.n_shared:
         y = y + apply_mlp(p["shared"], x, cfg)

@@ -5,7 +5,9 @@ Counterpart of ``repro.train.trainer``. ``make_train_step`` returns
 ``train_step(state, batch) -> (state, metrics)``; the step updates the
 state's params and moments in place (see ``optimizer``) and returns a state
 with ``step + 1``. Gradients come from ``torch.autograd.grad`` over detached
-views of the params, so no ``.grad`` buffers persist between steps.
+views of the params, so no ``.grad`` buffers persist between steps. A step
+records the spans ``train.forward``, ``train.backward`` and ``train.adam``
+(``repro_torch.obs``; the clip norm falls under ``train.adam``).
 
 Training attention defaults to ``"chunked"`` (exact attention in plain torch
 ops), as the reference's ``TrainConfig.attn_impl="xla"``, whose other name it
@@ -29,6 +31,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.models import ModelConfig
 from repro_torch.models.model import loss_fn
 from repro_torch.models.params import tree_items, tree_like, tree_map
@@ -72,9 +75,11 @@ def _loss_and_grads(params, paths, leaves, cfg: ModelConfig, batch, tcfg: TrainC
                     ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
     tracked = [p.detach().requires_grad_(True) for p in leaves]
     with torch.enable_grad():
-        loss, metrics = loss_fn(tree_like(params, dict(zip(paths, tracked))), cfg, batch,
-                                attn_impl=tcfg.attn_impl)
-        grads = torch.autograd.grad(loss, tracked)
+        with obs.span("train.forward"):
+            loss, metrics = loss_fn(tree_like(params, dict(zip(paths, tracked))), cfg, batch,
+                                    attn_impl=tcfg.attn_impl)
+        with obs.span("train.backward"):
+            grads = torch.autograd.grad(loss, tracked)
     return list(grads), {k: v.detach() for k, v in metrics.items()}
 
 
@@ -114,8 +119,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamConfig,
         grads, metrics = _grads_and_metrics(state.params, cfg, batch, tcfg)
         if tcfg.compress_pod_grads:
             grads = _cross_pod_mean_int8(grads)
-        params, opt, opt_m = adam_update(state.params, grads, state.opt, state.step,
-                                         opt_cfg, rng=state.rng)
+        with obs.span("train.adam"):
+            params, opt, opt_m = adam_update(state.params, grads, state.opt, state.step,
+                                             opt_cfg, rng=state.rng)
         return (TrainState(step=state.step + 1, rng=state.rng, params=params, opt=opt),
                 {**metrics, **opt_m})
 

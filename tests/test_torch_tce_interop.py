@@ -6,6 +6,8 @@
   ``TieredStore``) drives both engines synchronously on the same flat state:
   the modelled clock, the stats, the restored states and the store trees are
   equal, byte for byte (the manifests but for their wall-clock ``time``).
+  The reconciler's counters that the port keeps as attributes of its spans
+  (``repro_torch.obs``) are summed from them.
 * A delta chain that either package's engine wrote restores in the other's,
   also after its base step was deleted with ``rematerialize=True``.
 * The reference's ``run_single`` writes a checkpoint; both launchers resume
@@ -17,6 +19,7 @@
 import hashlib
 import json
 import shutil
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -29,11 +32,17 @@ import repro.recovery as ref_recovery  # noqa: E402
 from repro.launch import train as ref_train  # noqa: E402
 import repro_torch.core.tce as port_tce  # noqa: E402
 import repro_torch.recovery as port_recovery  # noqa: E402
+from repro_torch import obs  # noqa: E402
 from repro_torch.launch import train as port_train  # noqa: E402
 
 PACKAGES = {"reference": (ref_tce, ref_recovery), "port": (port_tce, port_recovery)}
 N_NODES = 4
 BF16_HALF_EPS = 2.0 ** -9
+# the reference's reconciler counters that the port keeps as span attributes
+SPAN_COUNTERS = {"delta_leaves_written": ("tce.persist", "leaves_written"),
+                 "backup_leaves_sent": ("tce.backup", "leaves_sent"),
+                 "backup_leaves_reused": ("tce.backup", "leaves_reused"),
+                 "backup_bytes_wire": ("tce.backup", "bytes")}
 
 
 def _state(seed=7, leaves=6, rows=512):
@@ -68,6 +77,22 @@ def _tree(root: Path) -> dict:
     return out
 
 
+def _reconciler_counts(name, eng, since: int) -> dict:
+    """The reconciler's counters: the reference's ``stats``; the port's
+    ``stats`` and the attributes of the spans this thread recorded after
+    span id ``since`` (the script's reconciler runs on it: async_persist
+    is off)."""
+    stats = eng.reconciler.stats
+    if name == "reference":
+        return {k: stats[k] for k in ("delta_leaves_skipped", *SPAN_COUNTERS)}
+    me = threading.get_ident()
+    recs = [r for r in obs.spans() if r.thread == me and r.id > since]
+    out = {"delta_leaves_skipped": stats["delta_leaves_skipped"]}
+    for key, (span, attr) in SPAN_COUNTERS.items():
+        out[key] = sum(r.attrs.get(attr, 0) for r in recs if r.name == span)
+    return out
+
+
 def _script(name, root: Path, codec: str):
     """The same fixed script through one package's engine; returns what it
     observed at each stage."""
@@ -87,11 +112,12 @@ def _script(name, root: Path, codec: str):
                                      tier_table=table, mem_limit_bytes=1 << 26),
                        store, clock=clock)
     seen = []
+    since = max((r.id for r in obs.spans()), default=0)
 
     def mark(what, out=None):
         seen.append((what, clock.seconds, json.dumps(eng.stats, sort_keys=True),
                      json.dumps(store.stats, sort_keys=True),
-                     json.dumps(eng.reconciler.stats, sort_keys=True),
+                     json.dumps(_reconciler_counts(name, eng, since), sort_keys=True),
                      None if out is None else
                      (out[0], {k: (v.dtype.str, v.shape, v.tobytes()) for k, v in out[1].items()})))
 
