@@ -4,10 +4,12 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (Hopper: the kernels are built for sm_90a). It builds the
-port's kernels (flash attention, blockwise int8 quantise / dequantise, the
-SSD chunked scan) from the sources in this checkout into ``build/``, one nvcc
-per kernel package, and holds each kernel against its plain PyTorch version
-on the card. Flash attention has two kernels, chosen by dtype
+port's kernels (AdamW with its clip, flash attention, blockwise int8
+quantise / dequantise, the SSD chunked scan) from the sources in this
+checkout into ``build/``, one nvcc per kernel package, and holds each kernel
+against its plain PyTorch version on the card (the AdamW kernel at
+olmoe-1b-7b-4l's 1.885 B float32 params, twice bit for bit, and timed beside
+the optimizer's per-leaf path). Flash attention has two kernels, chosen by dtype
 (``ops.variant``), both on the tensor cores at every head dim (16, 32, 64,
 128): ``sm90`` for bf16 (16 is every reduced config's head dim), ``tf32x3``
 for float32 (three TF32 products a product); each case runs the one the
@@ -353,6 +355,20 @@ TIE_WANT = [0, 0, 2, -4, 127]                     # round half to even
 TOK_TABLE = (128256, 4096)                        # the largest leaf on the path
 QB_SRC = "src/repro_torch/kernels/quant_blockwise/csrc/quant_blockwise.cu"
 QB_REPLACES = "src/repro/kernels/quant_blockwise/quant_blockwise.py"
+
+# The fused AdamW kernel at olmoe-train's state (olmoe-1b-7b cut to 4 layers:
+# 13 leaves, 1.885 B float32 params), at step 10 of a no-warmup schedule with
+# the clip engaged (g ~ N(0, 1e-4^2): a norm of ~4.3). Kernel vs its plain
+# version: both sum float64 squares, in another order, so the float32 norms
+# agree but for a rounding tie and every term to a few ulp. The tolerance is
+# each tensor's own: ADAMW_RTOL of an element plus ADAMW_RTOL of the tensor's
+# largest magnitude (v is drawn at ~1e-8, where a fixed atol would hide a
+# store that never happened); the phase checks that p, m and v as they were
+# before the step (a kernel that never stored one) fall outside it.
+ADAMW_ARCH, ADAMW_LAYERS, ADAMW_STEP = "olmoe-1b-7b", 4, 10
+ADAMW_RTOL = 1e-6
+ADAMW_BYTES = 32      # an element: g for the norm; p, g, m, v in and p, m, v out
+ADAMW_SRC = "src/repro_torch/kernels/adamw/csrc/adamw.cu"
 
 # The examples phase: examples/torch_*.py on the card. What their CPU runs
 # give, as tests/test_torch_examples.py pins it: the quickstart's restore
@@ -1646,6 +1662,117 @@ def phase_quant_kernel(qb_ops, qb_ref):
     return out
 
 
+def phase_adamw_kernel(adamw_ops, adamw_ref):
+    """The fused AdamW kernel at olmoe-train's state: two runs from equal
+    states bit for bit, against its plain version, then timed beside the
+    per-leaf path (the route every non-float32 tree takes) and, as a yardstick
+    the port never calls, ``torch._fused_adamw_`` (no clip: 28 bytes an
+    element)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import param_shapes
+    from repro_torch.models.params import flatten_params
+    from repro_torch.train import AdamConfig, optimizer
+
+    cfg = dataclasses.replace(get_config(ADAMW_ARCH), n_layers=ADAMW_LAYERS)
+    shapes = [tuple(s.shape) for s in flatten_params(param_shapes(cfg)).values()]
+    n = sum(math.prod(s) for s in shapes)
+    opt = AdamConfig(lr=TRAIN_LR, warmup_steps=0, decay_steps=100)
+    step = torch.tensor(ADAMW_STEP, dtype=torch.int32, device="cuda")
+    lr, c1, c2 = optimizer.step_scalars(opt, step, "cuda")
+    kw = dict(b1=opt.b1, b2=opt.b2, eps=opt.eps, weight_decay=opt.weight_decay,
+              grad_clip=opt.grad_clip)
+
+    def drawn(seed, scale, positive=False):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return [(torch.rand(s, generator=gen, device="cuda") if positive
+                 else torch.randn(s, generator=gen, device="cuda")) * scale for s in shapes]
+
+    def state():            # p, m, v: the same values at every call
+        return drawn(SEED + 40, 0.02), drawn(SEED + 41, 1e-4), drawn(SEED + 42, 1e-8, True)
+
+    def bits(x):
+        return x.reshape(-1).view(torch.int32)
+
+    def outside(got, want):
+        """Indices of the leaves of ``got`` outside the tolerance around
+        ``want``, and the worst share of the tolerance any element takes."""
+        worst, bad = 0.0, []
+        for i, (a, b) in enumerate(zip(got, want)):
+            diff = (a - b).abs_()
+            room = b.abs().mul_(ADAMW_RTOL).add_(ADAMW_RTOL * float(b.abs().max()))
+            worst = max(worst, float((diff / room).max()))
+            if not bool((diff <= room).all()):
+                bad.append(i)
+            del diff, room
+        return bad, worst
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = drawn(SEED + 43, 1e-4)
+    before = dict(adamw_ops.LAUNCHES)
+    p, m, v = state()
+    norm = adamw_ops.adamw_(p, g, m, v, lr, c1, c2, **kw)
+    p2, m2, v2 = state()
+    norm2 = adamw_ops.adamw_(p2, g, m2, v2, lr, c1, c2, **kw)
+    torch.cuda.synchronize()
+    launched = {k: adamw_ops.LAUNCHES[k] - before[k] for k in before}
+    bit_equal = bool(torch.equal(bits(norm), bits(norm2))) and all(
+        torch.equal(bits(a), bits(b)) for xs, ys in ((p, p2), (m, m2), (v, v2))
+        for a, b in zip(xs, ys))
+    del p2, m2, v2
+    pr, mr, vr = state()
+    norm_ref = adamw_ref.adamw_reference(pr, g, mr, vr, lr, c1, c2, **kw)
+    torch.cuda.synchronize()
+    worst, bad = 0.0, []
+    for name, xs, ys in (("p", p, pr), ("m", m, mr), ("v", v, vr)):
+        out, w = outside(xs, ys)
+        worst = max(worst, w)
+        bad += [f"{name}[{i}]" for i in out]
+    # a planted fault: each of p, m, v as it was before the step, as a kernel
+    # that never stored it would leave it, has to fall outside the tolerance
+    # on every leaf (the times below run on the plain version's state)
+    del p, m, v
+    unseen = {}
+    for name, before_step, ref_after in zip("pmv", state(), (pr, mr, vr)):
+        unseen[name] = len(shapes) - len(outside(before_step, ref_after)[0])
+    p, m, v = pr, mr, vr
+    del pr, mr, vr
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    out = {"phase": "adamw_kernel", "arch": ADAMW_ARCH, "n_layers": ADAMW_LAYERS,
+           "leaves": len(shapes), "n_params": n, "step": ADAMW_STEP,
+           "grad_norm": float(norm), "grad_norm_ref": float(norm_ref),
+           "clip_engaged": float(norm) > opt.grad_clip, "launches": launched,
+           "bit_equal_twice": bit_equal, "worst_share_of_tolerance": worst,
+           "tolerance": {"rtol": ADAMW_RTOL, "atol": f"{ADAMW_RTOL} x max |ref| a tensor"},
+           "unwritten_leaves_unseen": unseen, "peak_mem_gb": peak_gb}
+    check(launched == {"sumsq": 2, "norm_scale": 2, "update": 2}, f"launches {launched}")
+    check(bit_equal, "two AdamW kernel runs on equal inputs differ")
+    check(not bad, f"AdamW kernel vs its plain version: {bad} outside the tolerance")
+    check(not any(unseen.values()),
+          f"the tolerance does not see a store left undone, leaves per tensor: {unseen}")
+    check(out["clip_engaged"] and math.isfinite(out["grad_norm"]), f"grad norm {out['grad_norm']}")
+
+    # times, each on the plain version's state (each call moves it on)
+    nbytes = ADAMW_BYTES * n
+    ms = time_ms(lambda: adamw_ops.adamw_(p, g, m, v, lr, c1, c2, **kw))
+    plain_ms = time_ms(lambda: optimizer._per_leaf_update(p, g, m, v, lr, c1, c2, step, opt,
+                                                          None))
+    steps = [torch.full((), ADAMW_STEP + 1.0, device="cuda") for _ in shapes]
+    lr_f = float(lr)
+    library_ms = time_ms(lambda: torch._fused_adamw_(
+        p, g, m, v, [], steps, lr=lr_f, beta1=opt.b1, beta2=opt.b2,
+        weight_decay=opt.weight_decay, eps=opt.eps, amsgrad=False, maximize=False))
+    del p, m, v, g
+    bound_ms = nbytes / PEAK_BYTES_S * 1e3
+    out.update({"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "library": "torch._fused_adamw_ (no clip; weight decay on every leaf)",
+                "bound_ms": bound_ms, "bound_by": "bytes", "gbytes": nbytes / 1e9,
+                "gb_per_s": nbytes / (ms * 1e-3) / 1e9, "roofline_share": bound_ms / ms})
+    emit(out)
+    return out
+
+
 def phase_train(fa_ops):
     """make_train_step at full width, 4 layers: 8 timed steps of 4 x 1024
     tokens, then two steps that break the time down."""
@@ -2904,6 +3031,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    from repro_torch.kernels.adamw import ref as adamw_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.quant_blockwise import ops as qb_ops
@@ -2948,18 +3077,32 @@ def main() -> int:
     torch.cuda.empty_cache()
     quant = phase_quant_kernel(qb_ops, qb_ref)
     torch.cuda.empty_cache()
-    cfg, state, data, step_fn, train = phase_train(fa_ops)
+    adamw = phase_adamw_kernel(adamw_ops, adamw_ref)
+    torch.cuda.empty_cache()
+    # AdamW kernel launches (its update pass) by in-process path: every
+    # float32 tree on the card takes it
+    adamw_paths = {}
+
+    def adamw_count(path, fn, *args):
+        before = adamw_ops.LAUNCHES["update"]
+        got = fn(*args)
+        adamw_paths[path] = adamw_ops.LAUNCHES["update"] - before
+        return got
+
+    cfg, state, data, step_fn, train = adamw_count("train", phase_train, fa_ops)
     ckpt = phase_checkpoint(cfg, state, data, qb_ops, qb_ref)
-    engine_run = phase_tce_engine(cfg, state, data, step_fn, train, qb_ops, qb_ref)
-    par_step = phase_parallel_step(cfg, state, data, meshes["pod"])
+    engine_run = adamw_count("tce_engine", phase_tce_engine, cfg, state, data, step_fn, train,
+                             qb_ops, qb_ref)
+    par_step = adamw_count("parallel_step", phase_parallel_step, cfg, state, data,
+                           meshes["pod"])
     del state, step_fn
     torch.cuda.empty_cache()
     parallel_close(card, meshes, families["parallel_moe"], par_step)
     phase_worker()
     phase_capstone()
-    single = phase_train_single(qb_ops, qb_ref)
+    single = adamw_count("train_single", phase_train_single, qb_ops, qb_ref)
     torch.cuda.empty_cache()
-    loop = phase_closed_loop(qb_ops, qb_ref)
+    loop = adamw_count("closed_loop", phase_closed_loop, qb_ops, qb_ref)
     fa_paths = {"serve_llama": launches["fa"],
                 "serve_olmoe": families["olmoe-1b-7b"]["launches"]["fa"],
                 "parallel_olmoe_mesh": families["parallel_moe"]["launches"]["fa"],
@@ -3048,6 +3191,18 @@ def main() -> int:
                 "shape", "dtype", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                 "roofline_share", "max_abs_err", "passes", "heads_per_block", "views")
                 if k in ssd_timing[o]} for label, o in others.items()}})
+    # the fused AdamW kernel: no Pallas kernel's counterpart (the reference
+    # leaves its optimizer to XLA's fusion); launches of its update pass
+    entries.append({
+        "name": "adamw", "route": "cuda", "source": ADAMW_SRC,
+        "replaces": "none: src/repro/train/optimizer.py:122 adam_update, fused by XLA",
+        "launches": sum(adamw_paths.values()), "launches_by_path": adamw_paths,
+        "shape": f"{ADAMW_ARCH} x {ADAMW_LAYERS} layers: {adamw['leaves']} leaves, "
+                 f"{adamw['n_params']} float32",
+        "ms": adamw["ms"], "plain_ms": adamw["plain_ms"], "bound_ms": adamw["bound_ms"],
+        "bound_by": adamw["bound_by"], "library_ms": adamw["library_ms"],
+        "roofline_share": adamw["roofline_share"], "bit_equal_twice": adamw["bit_equal_twice"],
+        "worst_share_of_tolerance": adamw["worst_share_of_tolerance"]})
     idle = [e["name"] for e in entries if not e["launches"]]
     check(not idle, f"kernels never launched on their paths: {idle}")
     emit({"kernels": entries})

@@ -6,6 +6,7 @@ current stream, a ``LAUNCHES`` count; tensors on the CPU go to the plain
 version) and ``ref.py`` (the plain PyTorch version, the kernel's oracle).
 ``_build.py`` compiles the sources with nvcc at first use.
 
+  adamw             AdamW with its global-norm clip over a float32 tree (training)
   flash_attention   blocked online-softmax attention (causal + GQA), forward
   quant_blockwise   blockwise int8 quantise / dequantise (the TCE int8 codec)
   ssd_scan          Mamba-2 SSD chunked scan (the SSM family's prefill)

@@ -33,7 +33,7 @@ REPO_ROOT = KERNELS_DIR.parents[2]
 BUILD_DIR = REPO_ROOT / "build"
 
 # Every kernel package of the port that holds csrc/*.cu sources.
-KERNELS = ("flash_attention", "quant_blockwise", "ssd_scan")
+KERNELS = ("adamw", "flash_attention", "quant_blockwise", "ssd_scan")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

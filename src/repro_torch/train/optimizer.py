@@ -8,9 +8,21 @@ reference computes it in jnp, not through its Pallas kernel). Parameters may
 be kept in bf16 with stochastic rounding.
 
 The reference returns new trees and donates the old buffers; here the update
-runs under ``torch.no_grad()`` and writes params and moments in place, so a
-step holds one leaf's temporaries at a time on top of the state. Int8 moment
-leaves are ``{"q": int8, "s": f32}`` dicts, as in the reference.
+runs under ``torch.no_grad()`` and writes params and moments in place, into
+the same storage. Int8 moment leaves are ``{"q": int8, "s": f32}`` dicts, as
+in the reference.
+
+Two routes, chosen by the state (:func:`fused_route`), never by a setting: a
+state on the card that is float32 throughout (params and moments,
+contiguous) goes through the hand-written kernel ``kernels/adamw``, three
+launches a step for all leaves (the sum of squares, the norm and clip scale,
+the update: 32 bytes an element), which leaves the gradients as they are; a
+gradient that is not float32 and contiguous is read through a float32 copy of
+that leaf. Any other state (bf16 or int8 moments, bf16 params, the CPU) takes
+the per-leaf path in PyTorch ops, one leaf's temporaries at a time, which
+scales the gradients in place. The two compute the same terms with the same roundings;
+the kernel sums the norm's squares in float64, so its clip scale can differ
+from the per-leaf path's float32 sum in the last bits.
 
 Stochastic rounding draws its 16 random bits per value from a
 ``torch.Generator`` on the leaf's device, seeded from the state's rng leaf,
@@ -26,6 +38,9 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import obs
+from repro_torch.kernels.adamw import ops as adamw_ops
+from repro_torch.kernels.adamw.ref import clip_scale
 from repro_torch.kernels.quant_blockwise.ref import INV_QMAX
 from repro_torch.models.params import tree_items, tree_map
 
@@ -161,31 +176,35 @@ def _round_seed(rng: torch.Tensor, step: int, leaf: int) -> int:
     return (z ^ (z >> 31)) >> 1
 
 
-@torch.no_grad()
-def adam_update(params, grads, opt_state, step: torch.Tensor, cfg: AdamConfig,
-                rng: Optional[torch.Tensor] = None):
-    """One Adam step, in place. Returns (params, opt_state, metrics).
-
-    ``grads`` mirrors ``params`` and is consumed: it is scaled in place.
-    """
-    paths = [path for path, _ in tree_items(params)]
-    g_leaves = [_node(grads, p) for p in paths]
-    dev = g_leaves[0].device
-    gnorm = global_norm(g_leaves)
-    if cfg.grad_clip > 0:
-        scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
-    else:
-        scale = _f32(1.0, dev)
-    step_d = step.to(dev)
-    lr = lr_schedule(cfg, step_d)
+def step_scalars(cfg: AdamConfig, step: torch.Tensor, device):
+    """The step's learning rate and bias corrections ``1 - b ** (step + 1)``,
+    float32 scalars on ``device``: (lr, c1, c2)."""
+    step_d = step.to(device)
     t = step_d.to(torch.float32) + 1.0
-    c1 = 1.0 - torch.pow(_f32(cfg.b1, dev), t)
-    c2 = 1.0 - torch.pow(_f32(cfg.b2, dev), t)
-    step_int = None
+    return (lr_schedule(cfg, step_d), 1.0 - torch.pow(_f32(cfg.b1, device), t),
+            1.0 - torch.pow(_f32(cfg.b2, device), t))
 
-    for i, (path, g) in enumerate(zip(paths, g_leaves)):
-        p = _node(params, path)
-        m, v = _node(opt_state["m"], path), _node(opt_state["v"], path)
+
+def fused_route(p_leaves, m_leaves, v_leaves, cfg: AdamConfig) -> bool:
+    """Whether a step takes the fused kernel (``kernels/adamw``): float32
+    moments, and every param and moment float32 and contiguous on one CUDA
+    device. Decided by the state alone, before any launch: the gradients'
+    dtype and layout do not choose the route (the kernel reads an odd one
+    through a float32 copy)."""
+    return (cfg.moment_dtype == "float32"
+            and all(adamw_ops.takes(p, m, v) and p.device == p_leaves[0].device
+                    for p, m, v in zip(p_leaves, m_leaves, v_leaves)))
+
+
+def _per_leaf_update(p_leaves, g_leaves, m_leaves, v_leaves, lr, c1, c2, step: torch.Tensor,
+                     cfg: AdamConfig, rng: Optional[torch.Tensor]) -> torch.Tensor:
+    """The update leaf by leaf in PyTorch ops: any moment dtype, bf16 params
+    with or without stochastic rounding, any device. Scales ``g_leaves`` in
+    place. Returns the global norm."""
+    gnorm = global_norm(g_leaves)
+    scale = clip_scale(gnorm, cfg.grad_clip)
+    step_int = None
+    for i, (p, g, m, v) in enumerate(zip(p_leaves, g_leaves, m_leaves, v_leaves)):
         g = g.to(torch.float32)
         g.mul_(scale)
         m_f = _moment_get(m, cfg.moment_dtype)
@@ -213,4 +232,34 @@ def adam_update(params, grads, opt_state, step: torch.Tensor, cfg: AdamConfig,
             p.sub_(upd)
         else:
             p.copy_(p_f - upd)
+    return gnorm
+
+
+@torch.no_grad()
+def adam_update(params, grads, opt_state, step: torch.Tensor, cfg: AdamConfig,
+                rng: Optional[torch.Tensor] = None):
+    """One Adam step, in place. Returns (params, opt_state, metrics).
+
+    ``grads`` mirrors ``params``. A state that :func:`fused_route` accepts (on
+    the card, float32 params and moments) goes through the fused kernel: two
+    passes over all leaves, the clip's norm and then the update, with
+    ``grads`` left as they are (each on its param's card, of any float dtype
+    and layout); the step adds ``fused_leaves`` to the innermost open span
+    (``train.adam`` in the trainer). Any other state takes the per-leaf path,
+    which consumes ``grads``: it scales them in place.
+    """
+    paths = [path for path, _ in tree_items(params)]
+    p_leaves = [_node(params, p) for p in paths]
+    g_leaves = [_node(grads, p) for p in paths]
+    m_leaves = [_node(opt_state["m"], p) for p in paths]
+    v_leaves = [_node(opt_state["v"], p) for p in paths]
+    lr, c1, c2 = step_scalars(cfg, step, g_leaves[0].device)
+    if fused_route(p_leaves, m_leaves, v_leaves, cfg):
+        gnorm = adamw_ops.adamw_(p_leaves, g_leaves, m_leaves, v_leaves, lr, c1, c2,
+                                 b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                                 weight_decay=cfg.weight_decay, grad_clip=cfg.grad_clip)
+        obs.add(fused_leaves=len(paths))
+    else:
+        gnorm = _per_leaf_update(p_leaves, g_leaves, m_leaves, v_leaves, lr, c1, c2, step,
+                                 cfg, rng)
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}
