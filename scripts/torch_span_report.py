@@ -7,8 +7,10 @@ the program's own spans (``repro_torch.obs``) say about the run:
   spread of the starts' and the ends' offsets;
 * which program spans reached the trace from threads other than the main one
   (the TCE pool's and the reconciler's);
-* the run's spans by name: count, host seconds and summed attributes (but
-  the step, rank and the MoE's per-layer sizes);
+* the run's spans by name (the MoE's ``moe.*`` with ``moe.shared``, MLA's
+  ``mla.project``, ``mla.attend`` and ``mla.out``): count, host seconds and
+  summed attributes (but the step, rank and the layers' sizes and
+  settings, ``SIZES``);
 * ``durable_s``, which ``BENCHMARK.json`` does not list (read here in the
   traced run, where the profiler's stop can hold the reconciler);
 * the longest idle gaps of the traced segment, each named by the main
@@ -35,7 +37,9 @@ from collections import defaultdict  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
-PROGRAM = ("train.", "moe.", "tce.")
+PROGRAM = ("train.", "moe.", "mla.", "tce.")
+# attributes that name a size or a setting, not a count: not summed
+SIZES = ("step", "rank", "tokens", "capacity", "d_ff", "q_lora_rank", "qk_dim", "v_dim", "scale")
 
 
 def gaps(trace, t0, t1, n):
@@ -93,7 +97,7 @@ def report(ctx, line, n_gaps):
         by[key]["count"] += 1
         by[key]["seconds"] += r.seconds
         for k, v in r.attrs.items():
-            if isinstance(v, (int, float)) and k not in ("step", "rank", "tokens", "capacity"):
+            if isinstance(v, (int, float)) and k not in SIZES:
                 by[key]["attrs"][k] += v
     out["spans"] = {k: {**v, "attrs": dict(v["attrs"])} for k, v in sorted(by.items())}
     host = [(a, b, name) for a, b, name, t in trace.host if t == tid]

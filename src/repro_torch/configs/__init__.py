@@ -1,5 +1,6 @@
 """Architecture registry: ``get_config(arch_id)``, for the same archs, in the
-same order, as the reference registry (``repro.configs.ARCHS``), and the
+same order, as the reference registry (``repro.configs.ARCHS``), then the
+port's own (``PORT_ARCHS``: models the reference does not register), and the
 assigned shape set (``SHAPES``, ``shape_cells``)."""
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ ARCHS: Tuple[str, ...] = (
     "olmoe-1b-7b", "whisper-tiny", "jamba-v0.1-52b", "mamba2-130m",
     "qwen2-vl-2b",
 )
-
+# resolved by get_config beside ARCHS, which stays the reference's registry
+PORT_ARCHS: Tuple[str, ...] = ("deepseek-v2-lite-16b",)
 
 
 @dataclass(frozen=True)
@@ -32,8 +34,8 @@ SHAPES: Dict[str, ShapeSpec] = {
 
 
 def get_config(arch: str):
-    if arch not in ARCHS:
-        raise ValueError(f"unknown arch {arch!r}; known: {', '.join(ARCHS)}")
+    if arch not in ARCHS + PORT_ARCHS:
+        raise ValueError(f"unknown arch {arch!r}; known: {', '.join(ARCHS + PORT_ARCHS)}")
     mod = importlib.import_module(
         f"repro_torch.configs.{arch.replace('-', '_').replace('.', '_')}")
     return mod.get_config()

@@ -72,7 +72,8 @@ def _pick_q_block(seq: int) -> int:
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      causal: bool, q_block: Optional[int] = None) -> torch.Tensor:
+                      causal: bool, q_block: Optional[int] = None,
+                      scale: Optional[float] = None) -> torch.Tensor:
     """Exact attention, a loop over query blocks.
 
     q: (B, S, H, D);  k, v: (B, T, KH, D) with H = KH * rep. (The reference's
@@ -80,11 +81,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`decode_attention`, so no caller needs it.) Scores and softmax are float32 (the reference's
     ``preferred_element_type=f32``: bf16 operands are widened, so each product
     is exact); the weights are cast to v's dtype before P.V, as the reference.
+    The scores are scaled by ``scale``, by default 1/sqrt(D) (MLA under YaRN
+    passes its own).
     """
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     rep = h // kh
-    scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32, device=q.device))
+    if scale is None:
+        scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32, device=q.device))
     q_block = q_block or _pick_q_block(s)
     n_blocks = s // q_block
     qb = q.reshape(b, n_blocks, q_block, kh, rep, d)

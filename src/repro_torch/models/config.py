@@ -4,6 +4,11 @@ A single :class:`ModelConfig` dataclass describes every architecture family the
 reference supports. The port keeps its own copy (it imports nothing of
 ``repro``), field for field, with the same ``reduced()``, ``n_params()`` and
 ``n_active_params()``; ``tests/test_torch_models.py`` holds the two equal.
+Fields marked "port only" (``MoEConfig.norm_topk_prob``,
+``ModelConfig.rope_scaling``) are the port's additions for configurations
+the reference does not register; at their defaults they are the reference's
+behaviour, and the parity tests hold them there. A ``q_lora_rank`` of 0 (no
+query compression) is the port's too.
 Which families the port can run yet is decided in ``repro_torch.models.blocks``.
 """
 from __future__ import annotations
@@ -30,17 +35,38 @@ class MoEConfig:
     # 'scatter'  — capacity-based scatter dispatch (production; EP-shardable)
     # 'dense'    — compute all experts, weight by gate (tiny smoke configs only)
     impl: str = "scatter"
+    # port only: the top-k gates renormalised to sum to 1 (the reference's
+    # router); False keeps the softmax probabilities (DeepSeek-V2's
+    # norm_topk_prob false)
+    norm_topk_prob: bool = True
 
 
 @dataclass(frozen=True)
 class MLAConfig:
     """DeepSeek multi-head latent attention."""
 
-    q_lora_rank: int = 1536
+    q_lora_rank: int = 1536            # 0: no query compression (DeepSeek-V2-Lite)
     kv_lora_rank: int = 512
     qk_nope_dim: int = 128
     qk_rope_dim: int = 64
     v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class RopeScaling:
+    """YaRN rope scaling (port only; DeepSeek-V2's ``rope_scaling``): the rope
+    frequencies blended between interpolated (divided by ``factor``) and
+    original over the rotary indices that ``beta_fast`` and ``beta_slow``
+    rotations at ``original_max_positions`` bound, cos and sin times
+    mscale(factor, mscale) / mscale(factor, mscale_all_dim), and the softmax
+    scale times mscale(factor, mscale_all_dim) squared. MLA reads it."""
+
+    factor: float = 1.0
+    original_max_positions: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -100,6 +126,7 @@ class ModelConfig:
     pos_embedding: str = "rope"         # rope | sinusoid (whisper)
     rope_theta: float = 10000.0
     partial_rotary_factor: float = 1.0  # phi-4-mini: 0.75
+    rope_scaling: Optional[RopeScaling] = None   # port only: YaRN on MLA's rope dims
     mtp_depth: int = 0                  # DeepSeek multi-token-prediction depth
 
     moe: Optional[MoEConfig] = None
@@ -117,6 +144,10 @@ class ModelConfig:
     scan_layers: bool = True
     remat: bool = True
     remat_policy: str = "full"          # full | dots | none
+
+    def __post_init__(self):
+        if self.rope_scaling is not None and self.mla is None:
+            raise ValueError(f"{self.name}: rope_scaling (YaRN) is read by MLA alone")
 
     # ------------------------------------------------------------------ #
     @property
@@ -184,7 +215,10 @@ class ModelConfig:
         if self.mla is not None:
             m = self.mla
             qk_dim = m.qk_nope_dim + m.qk_rope_dim
-            p = d * m.q_lora_rank + m.q_lora_rank * self.n_heads * qk_dim
+            if m.q_lora_rank:
+                p = d * m.q_lora_rank + m.q_lora_rank * self.n_heads * qk_dim
+            else:
+                p = d * self.n_heads * qk_dim
             p += d * (m.kv_lora_rank + m.qk_rope_dim)
             p += m.kv_lora_rank * self.n_heads * (m.qk_nope_dim + m.v_head_dim)
             p += self.n_heads * m.v_head_dim * d
@@ -249,8 +283,8 @@ class ModelConfig:
                 impl="dense")
             kw["n_layers"] = 4 if self.moe.first_k_dense else kw["n_layers"]
         if self.mla is not None:
-            kw["mla"] = MLAConfig(q_lora_rank=32, kv_lora_rank=16,
-                                  qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16)
+            kw["mla"] = MLAConfig(q_lora_rank=32 if self.mla.q_lora_rank else 0,
+                                  kv_lora_rank=16, qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16)
         if self.ssm is not None:
             kw["ssm"] = dataclasses.replace(self.ssm, d_state=16, head_dim=16, chunk=32)
         if self.encdec is not None:

@@ -17,12 +17,18 @@ implementations, as in the reference:
   as the reference does with no mesh; so it does under a ``LogicalMesh``
   (the dry run's), which has no ranks to exchange tokens between.
 * ``dense`` (the reduced configs) — every expert runs on every token,
-  weighted by the renormalised top-k gate; exact, no drops, O(E) FLOPs.
+  weighted by the top-k gate; exact, no drops, O(E) FLOPs.
 
 The scatter path records its phases as the spans ``moe.route``,
 ``moe.dispatch``, ``moe.experts`` and ``moe.combine`` (``repro_torch.obs``;
-attributes ``tokens`` and ``capacity``, the slots an expert has in a group).
-Their backward runs outside them, under the train step's ``train.backward``.
+attributes ``tokens`` and ``capacity``, the slots an expert has in a group);
+every path records the shared experts, where a config has them, as
+``moe.shared`` (``tokens``, ``d_ff``). Their backward runs outside them,
+under the train step's ``train.backward``.
+
+``MoEConfig.norm_topk_prob`` False (port only, DeepSeek-V2's router) keeps
+the top-k softmax probabilities as the gates; the default renormalises them,
+as the reference does.
 
 The expert products are plain batched matmuls (``torch.einsum``), as the
 reference computes them outside any Pallas kernel. The router picks experts
@@ -61,11 +67,14 @@ def moe_params(pb: ParamBuilder, cfg: ModelConfig):
 
 
 def _gate(p, x: torch.Tensor, cfg: ModelConfig):
-    """Router: softmax over experts, top-k, renormalised. x: (..., d)."""
+    """Router: softmax over experts, top-k, renormalised unless
+    ``norm_topk_prob`` is False (the gates are then the top-k softmax
+    probabilities). x: (..., d)."""
     logits = x.float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)
     gate_w, expert_idx = torch.topk(probs, cfg.moe.top_k, dim=-1)   # (..., k)
-    gate_w = gate_w / (gate_w.sum(dim=-1, keepdim=True) + 1e-9)
+    if cfg.moe.norm_topk_prob:
+        gate_w = gate_w / (gate_w.sum(dim=-1, keepdim=True) + 1e-9)
     return probs, gate_w, expert_idx
 
 
@@ -160,9 +169,7 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, tor
             and "model" in ctx.shape):
         from .moe_shard_map import moe_forward_shard_map
         y, aux = moe_forward_shard_map(p, x, cfg)
-        if mo.n_shared:
-            y = y + apply_mlp(p["shared"], x, cfg)
-        return y, aux
+        return _add_shared(p, x, y, cfg), aux
 
     if mo.impl == "dense":
         probs, gate_w, expert_idx = _gate(p, x, cfg)
@@ -192,7 +199,16 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, tor
         with obs.span("moe.combine", tokens=b * s, capacity=capacity):
             y = constrain(_combine(out_slots, idx, gw), ("moe_groups", None, None))
             y = y.reshape(b, s, d)
+    return _add_shared(p, x, y, cfg), aux
 
-    if mo.n_shared:
-        y = y + apply_mlp(p["shared"], x, cfg)
-    return y, aux
+
+def _add_shared(p, x: torch.Tensor, y: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """y plus the shared experts' output on every token (one SwiGLU MLP of
+    ``n_shared * d_ff_shared``), under the span ``moe.shared``; y alone
+    where the config has none."""
+    mo = cfg.moe
+    if not mo.n_shared:
+        return y
+    d_ff = mo.n_shared * mo.d_ff_shared
+    with obs.span("moe.shared", tokens=x.shape[0] * x.shape[1], d_ff=d_ff):
+        return y + apply_mlp(p["shared"], x, cfg)

@@ -64,7 +64,9 @@ MOMENT_DTYPES = ("float32", "bfloat16", "int8")
 
 
 def _f32(x: float, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    # a fill on the device: torch.tensor(x, device=...) copies from pageable
+    # host memory, which synchronises the stream in the middle of each step
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def lr_schedule(cfg: AdamConfig, step: torch.Tensor) -> torch.Tensor:

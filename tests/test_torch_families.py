@@ -54,6 +54,7 @@ from repro_torch.models.params import flatten_params, params_from_flat, tree_ite
 from repro_torch.serve.engine import decode_fn, greedy_generate, pad_cache, prefill_fn  # noqa: E402
 from repro_torch.substrate.worker import LOSSLESS_PATHS  # noqa: E402
 from repro_torch.train import AdamConfig, init_train_state  # noqa: E402
+from test_torch_models import assert_config_is_the_references  # noqa: E402
 
 NEW_ARCHS = ("olmo-1b", "phi4-mini-3.8b", "yi-34b", "olmoe-1b-7b", "jamba-v0.1-52b",
              "deepseek-v3-671b")
@@ -113,7 +114,7 @@ def test_config_equals_reference(arch, reduced):
     port, ref = get_config(arch), jax_get_config(arch)
     if reduced:
         port, ref = port.reduced(), ref.reduced()
-    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert_config_is_the_references(port, ref)
     assert port.n_params() == ref.n_params()
     assert port.n_active_params() == ref.n_active_params()
 

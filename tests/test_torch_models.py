@@ -43,6 +43,23 @@ def _to_port(jcfg):
     return port_config.ModelConfig(**kw)
 
 
+def assert_config_is_the_references(port, ref):
+    """Every field the reference's config has is equal in the port's, nested
+    configs field by field, and every port-only field sits at its default
+    (``models/config.py``: at their defaults they are the reference's
+    behaviour)."""
+    names = {f.name for f in dataclasses.fields(ref)}
+    for f in dataclasses.fields(port):
+        got = getattr(port, f.name)
+        if f.name not in names:
+            assert got == f.default, (type(port).__name__, f.name, got)
+        elif dataclasses.is_dataclass(got):
+            assert_config_is_the_references(got, getattr(ref, f.name))
+        else:
+            assert got == getattr(ref, f.name), (type(port).__name__, f.name)
+    assert names <= {f.name for f in dataclasses.fields(port)}
+
+
 def _bridge(jcfg, seed=0):
     """Reference weights, and their flat {path: ndarray} form."""
     jparams = jax_model.init_params(jcfg, jax.random.key(seed))
@@ -57,7 +74,7 @@ def test_llama3_config_equals_reference(reduced):
     port, ref = get_config("llama3-8b"), jax_get_config("llama3-8b")
     if reduced:
         port, ref = port.reduced(), ref.reduced()
-    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert_config_is_the_references(port, ref)
     assert port.n_params() == ref.n_params()
     assert port.n_active_params() == ref.n_active_params()
 
@@ -72,7 +89,7 @@ def test_config_copy_counts_every_reference_arch(arch):
     port = _to_port(ref)
     assert port.n_params() == ref.n_params()
     assert port.n_active_params() == ref.n_active_params()
-    assert dataclasses.asdict(port.reduced()) == dataclasses.asdict(ref.reduced())
+    assert_config_is_the_references(port.reduced(), ref.reduced())
 
 
 def test_every_reference_arch_resolves_and_unknown_raises():
@@ -80,7 +97,7 @@ def test_every_reference_arch_resolves_and_unknown_raises():
     to the reference's configs, and only a name outside the registry raises
     (ValueError)."""
     for arch in ("whisper-tiny", "qwen2-vl-2b"):
-        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jax_get_config(arch))
+        assert_config_is_the_references(get_config(arch), jax_get_config(arch))
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("no-such-arch")
 

@@ -33,7 +33,7 @@ from repro_torch.models import blocks, model, ssm  # noqa: E402
 from repro_torch.models.params import flatten_params, params_from_flat, tree_items  # noqa: E402
 from repro_torch.serve.engine import (decode_fn, greedy_generate, pad_cache,  # noqa: E402
                                       prefill_fn)
-from test_torch_models import _to_port  # noqa: E402
+from test_torch_models import _to_port, assert_config_is_the_references  # noqa: E402
 
 ARCH = "mamba2-130m"
 RANDOM_CONSTANTS = {"A_log": 0.5, "D": 1.0, "dt_bias": 0.5, "conv_b": 0.2}
@@ -84,7 +84,7 @@ def test_mamba2_config_equals_reference(reduced):
     port, ref = get_config(ARCH), jax_get_config(ARCH)
     if reduced:
         port, ref = port.reduced(), ref.reduced()
-    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert_config_is_the_references(port, ref)
     assert port.n_params() == ref.n_params()
     assert [s.n_steps for s in blocks.segments(port)] == [port.n_layers]
 
