@@ -31,7 +31,7 @@ from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import apply_mlp, apply_norm, mlp_params, norm_params
-from .params import ParamBuilder, stacked, torch_dtype, tree_map
+from .params import ParamBuilder, stacked, torch_dtype, tree_map, unstack
 
 
 @dataclass(frozen=True)
@@ -257,7 +257,8 @@ def layer_forward(p, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
 # --------------------------------------------------------------------------- #
 def segment_forward(params, x: torch.Tensor, cfg: ModelConfig, seg: Segment,
                     *, mode: str, cache=None, **kw):
-    """Run one segment: a loop over the stacked leading axis.
+    """Run one segment: a loop over the stacked leading axis, whose leaves
+    are split once (``params.unstack``).
 
     Returns (x, new_cache_or_None, aux). In ``prefill`` the new cache is the
     per-layer leaves stacked over the leading axis; in ``decode`` it is the
@@ -267,8 +268,7 @@ def segment_forward(params, x: torch.Tensor, cfg: ModelConfig, seg: Segment,
         raise ValueError(f"unknown mode {mode!r}")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     steps = []
-    for i in range(seg.n_steps):
-        p_i = tree_map(lambda t: t[i], params)
+    for i, p_i in enumerate(unstack(params, seg.n_steps)):
         c_i = tree_map(lambda t: t[i], cache) if cache is not None else None
         new_caches = {}
         for j, spec in enumerate(seg.specs):

@@ -44,7 +44,7 @@ from . import blocks
 from .config import ModelConfig
 from .layers import (apply_mlp, apply_norm, embed_tokens, embedding_params, lm_logits,
                      norm_params)
-from .params import ParamBuilder, torch_dtype, tree_map
+from .params import ParamBuilder, torch_dtype, unstack
 
 
 # --------------------------------------------------------------------------- #
@@ -148,8 +148,8 @@ def _run_encoder(params, cfg: ModelConfig, enc_embeds: torch.Tensor,
     pos = torch.arange(x.shape[1], device=x.device)[None]
     if cfg.pos_embedding == "sinusoid":
         x = x + _sinusoid(pos, cfg.d_model).to(x.dtype)
-    for i in range(cfg.encdec.n_enc_layers):
-        p_l = tree_map(lambda t: t[i], enc["seg"])["l0"]
+    for layer in unstack(enc["seg"], cfg.encdec.n_enc_layers):
+        p_l = layer["l0"]
         h = apply_norm(p_l["norm1"], x, cfg)
         y, _ = attn_mod.attention_forward(p_l["mix"], h, cfg, pos, causal=False,
                                           use_rope=False, attn_impl=attn_impl)

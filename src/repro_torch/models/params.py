@@ -23,10 +23,12 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch import obs
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 Axes = Tuple[Optional[str], ...]
@@ -71,6 +73,29 @@ def tree_map(fn: Callable, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     return fn(tree, *rest)
+
+
+def unstack(tree, n: int) -> List[Any]:
+    """The ``n`` per-layer trees of a tree stacked over a leading axis of
+    ``n``: one ``torch.unbind`` a leaf, its views regrouped by layer.
+
+    Under autograd each stacked leaf then reaches the graph through one
+    ``UnbindBackward0``, whose backward stacks the layers' gradients once. A
+    ``t[i]`` a layer would give every slice a zero-filled gradient of the
+    whole stack, summed ``n`` times. The leaves split are counted into the
+    innermost open span (``unstacked_leaves``)."""
+    count = 0
+
+    def split(t: torch.Tensor):
+        nonlocal count
+        if t.shape[0] != n:
+            raise ValueError(f"leading axis {t.shape[0]}, expected {n}")
+        count += 1
+        return torch.unbind(t)
+
+    views = tree_map(split, tree)
+    obs.add(unstacked_leaves=count)
+    return [tree_map(lambda v: v[i], views) for i in range(n)]
 
 
 def flatten_params(params) -> Dict[str, Any]:

@@ -22,6 +22,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.models.params import unstack
+
 from . import compat
 from .sharding import P, mesh_shape
 
@@ -53,13 +55,14 @@ def pipeline(layer_fn: Callable, stage_params, x: torch.Tensor, *,
         # batch of microbatches on stage 0's schedule
         params_local = _tree_map(lambda t: t[0], params_local)
         n_layers = next(iter(_leaves(params_local))).shape[0]
+        layers = unstack(params_local, n_layers)
         stage = compat.axis_index(axis)
         xs = compat.all_gather(x_local, axis, axis=0)
         micro = xs.reshape((n_micro, b // n_micro) + tuple(xs.shape[1:]))
 
         def run_stage(h):
-            for i in range(n_layers):
-                h = layer_fn(_tree_map(lambda t: t[i], params_local), h)
+            for p_i in layers:
+                h = layer_fn(p_i, h)
             return h
 
         h_in = torch.zeros_like(micro[0])
